@@ -1,0 +1,232 @@
+"""Interception library for PyTorch (THAPI §3.2–§3.3, Fig 1b "Wrapper Functions").
+
+THAPI intercepts every API entry/exit of each programming model and records
+the *complete call context* — arguments, pointers, sizes, out-values — not
+just names and timestamps (§1.1's zeCommandListAppendMemoryCopy example).
+
+Interception points of the PyTorch stack:
+
+  ust_repro       framework API   — serve calls (prefill / decode_step)
+  ust_torchrt     torch dispatch  — eager step dispatches and first-call
+                                    "compiles", CUDA-event fences
+  ust_kernel      device layer    — step and kernel spans
+
+Pointer convention reproduced from the paper: host addresses start ``0x00``,
+device addresses ``0xff`` — so analysis can deduce H2D vs D2H from the
+address classes alone.
+
+Everything here no-ops at one branch when tracing is off: the recorders
+generated by tracepoints.py check their enable flag first, and the wrapper
+fast paths check ``active_tracer()`` once.
+"""
+
+from __future__ import annotations
+
+import time
+from contextlib import contextmanager
+from typing import Any, Callable, Dict, Optional, Sequence
+
+import torch
+
+from .clock import now
+from .tracer import active_tracer, get_tracepoints
+
+_DEVICE_PTR_TAG = 0xFF00_0000_0000_0000
+_PTR_MASK = 0x0000_FFFF_FFFF_FFFF
+
+
+def device_ptr(x: torch.Tensor) -> int:
+    """0xff-tagged device address of a tensor's storage (§1.1 convention)."""
+    return _DEVICE_PTR_TAG | (x.data_ptr() & _PTR_MASK)
+
+
+def _tensors(tree: Any) -> list:
+    """The tensors of a nested dict/list/tuple, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return []
+
+
+def nbytes_of(tree: Any) -> int:
+    """Bytes held by the tensors of a nested dict/list/tuple."""
+    return sum(t.numel() * t.element_size() for t in _tensors(tree))
+
+
+class _TP:
+    """Late-bound recorder bundle (single global trace model)."""
+
+    def __init__(self):
+        tps = get_tracepoints()
+        r = tps.record
+        self.dispatch_entry = r["ust_torchrt:dispatch_entry"]
+        self.dispatch_exit = r["ust_torchrt:dispatch_exit"]
+        self.compile_entry = r["ust_torchrt:compile_entry"]
+        self.compile_exit = r["ust_torchrt:compile_exit"]
+        self.block_entry = r["ust_torchrt:block_until_ready_entry"]
+        self.block_exit = r["ust_torchrt:block_until_ready_exit"]
+        # fused entry/exit pair: one ring reservation per poll of the spin loop
+        self.poll_pair = tps.record_pair["ust_repro:poll_ready"]
+        self.kernel_span = r["ust_kernel:launch_span"]
+        self.fw = {
+            name: (r[f"ust_repro:{name}_entry"], r[f"ust_repro:{name}_exit"])
+            for name in ("prefill", "decode_step")
+        }
+
+
+_tp: Optional[_TP] = None
+
+
+def tp() -> _TP:
+    global _tp
+    if _tp is None:
+        _tp = _TP()
+    return _tp
+
+
+# ---------------------------------------------------------------------------
+# ust_torchrt: traced eager step (the workhorse wrapper)
+# ---------------------------------------------------------------------------
+
+
+class TracedStep:
+    """Eager step wrapper with THAPI interception (≙ the JAX ``TracedJit``).
+
+    Records per call:
+      * ``dispatch`` entry/exit — fn name, #args, argument bytes
+      * ``compile`` entry/exit on the first call (cache_hit=False) — the
+        first eager call is where PyTorch builds its kernels and caches
+      * ``launch`` span — begin/end timestamps around execution.  On a CUDA
+        ``device`` the end is fenced with a ``torch.cuda.Event`` recorded on
+        the current stream: ``block_until_ready`` entry/exit around
+        ``Event.synchronize()``, or in *full* mode a polling loop on
+        ``Event.query()`` emitting ``poll_ready`` pairs — the spin-lock
+        pattern behind zeEventHostSynchronize's 9.9M calls in the §4.3
+        tally.  A CPU step has finished when it returns: no fence.
+    """
+
+    def __init__(
+        self,
+        fn: Callable,
+        name: Optional[str] = None,
+        *,
+        device: torch.device,
+        flops: int = 0,
+    ):
+        self._fn = fn
+        self.name = name or getattr(fn, "__name__", "step")
+        self.device = torch.device(device)
+        self.flops = flops
+        self._arg_bytes: Optional[int] = None
+        self._called_once = False
+
+    def __call__(self, *args):
+        tr = active_tracer()
+        if tr is None or not tr.selected or tr.fidelity == "off":
+            return self._fn(*args)
+        t = tp()
+        if self._arg_bytes is None:
+            self._arg_bytes = nbytes_of(args)
+        first = not self._called_once
+        if first:
+            t.compile_entry(self.name, hash(self.name) & 0xFFFFFFFFFFFF)
+            self._called_once = True
+        t.dispatch_entry(self.name, len(args), self._arg_bytes, 0)
+        ts_begin = now()
+        out = self._fn(*args)
+        if first:
+            t.compile_exit(0, False)
+        if self.device.type == "cuda":
+            self._fence(out, tr)
+        t.kernel_span(ts_begin, now(), self.name, 1, 1, 1, self.flops, 0)
+        t.dispatch_exit(0)
+        return out
+
+    def _fence(self, out, tr) -> None:
+        ev = torch.cuda.Event()
+        ev.record()
+        if tr.full:
+            leaves = _tensors(out)
+            hdl = device_ptr(leaves[-1]) if leaves else 0
+            # polling fence: one fused pair record per poll, lookups hoisted
+            poll = tp().poll_pair
+            _now = now
+            spins = 0
+            while not ev.query():
+                poll(hdl, _now(), False)
+                spins += 1
+                if spins > 4:
+                    time.sleep(0)
+            poll(hdl, _now(), True)
+            return
+        th = tp()
+        th.block_entry(0)
+        ev.synchronize()
+        th.block_exit(0)
+
+
+# ---------------------------------------------------------------------------
+# ust_kernel spans
+# ---------------------------------------------------------------------------
+
+
+@contextmanager
+def kernel_span(name: str, grid: Sequence[int] = (1, 1, 1), flops: int = 0, bytes_accessed: int = 0):
+    """Span around a hand-written kernel's call.  Eager PyTorch records one
+    per call (JAX records one per trace); a CUDA launch is asynchronous, so
+    on the card the span covers the enqueue, and the step's fenced launch
+    span carries the device time."""
+    tr = active_tracer()
+    if tr is None or not tr.selected or tr.fidelity == "off":
+        yield
+        return
+    gx, gy, gz = (tuple(grid) + (1, 1, 1))[:3]
+    rec = tp().kernel_span  # hoisted: no lookups on the span exit path
+    _now = now
+    ts_begin = _now()
+    yield
+    rec(ts_begin, _now(), name, gx, gy, gz, flops, bytes_accessed)
+
+
+# ---------------------------------------------------------------------------
+# ust_repro framework spans (≙ OMPT callbacks layer)
+# ---------------------------------------------------------------------------
+
+
+class _FrameworkSpan:
+    """Entry/exit pair with OutScalar exit fields (Fig 3 meta-parameters).
+
+    ``outs`` is filled by the caller before exit; missing outs default to 0.
+    """
+
+    __slots__ = ("_exit_rec", "_out_names", "outs", "_on")
+
+    def __init__(self, api: str, entry_args: tuple, out_names: tuple):
+        tr = active_tracer()
+        self._on = tr is not None and tr.selected and tr.fidelity != "off"
+        self._out_names = out_names
+        self.outs: Dict[str, Any] = {}
+        if self._on:
+            entry_rec, self._exit_rec = tp().fw[api]
+            entry_rec(*entry_args)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, et, ev, tb):
+        if self._on:
+            status = 0 if et is None else 1
+            vals = [self.outs.get(n, 0) for n in self._out_names]
+            self._exit_rec(status, *vals)
+        return False
+
+
+def prefill_span(request_id: int, batch: int, seq_len: int) -> _FrameworkSpan:
+    return _FrameworkSpan("prefill", (request_id, batch, seq_len), ())
+
+
+def decode_step_span(request_id: int, batch: int, cache_len: int) -> _FrameworkSpan:
+    return _FrameworkSpan("decode_step", (request_id, batch, cache_len), ("tokens_out",))
