@@ -4,9 +4,8 @@
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
 Phases, each fatal on failure:
-  1. build every CUDA source under src/repro_torch/csrc/ (one nvcc each, in
-     parallel) and print the build time and the compiler's register and
-     shared-memory report;
+  1. build every CUDA source under src/repro_torch/csrc/ (one nvcc each)
+     and print the build time and the compiler's register and spill report;
   2. hold each hand-written kernel against its plain PyTorch version on the
      card at the serving path's shapes (SSD scan: Mamba2-1.3B's H=64, P=64,
      G=1, N=128; one and four chunks, a ragged 100-step chunk, a non-zero
@@ -26,7 +25,6 @@ printing no result, without a CUDA card or outside a checkout.
 
 from __future__ import annotations
 
-import concurrent.futures
 import dataclasses
 import json
 import os
@@ -118,9 +116,8 @@ def build_kernels() -> None:
     csrc = os.path.join(ROOT, "src", "repro_torch", "csrc")
     names = sorted(f[:-3] for f in os.listdir(csrc) if f.endswith(".cu"))
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
-        for name, path in zip(names, ex.map(_build.build, names)):
-            print(f"[build] {name} -> {os.path.relpath(path, ROOT)}")
+    for name in names:
+        print(f"[build] {name} -> {os.path.relpath(_build.build(name), ROOT)}")
     print(f"[build] {len(names)} source(s) in {time.perf_counter() - t0:.1f} s")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
@@ -151,8 +148,11 @@ def ssd_inputs(S: int, dtype, with_state0: bool, seed: int):
 
 def ssd_bound(S: int, chunk: int, x, Bm, state0) -> tuple:
     """Least time for one call: bytes each read or written once over HBM, and
-    the operations (full LxL intra-chunk products per head) over the bf16
-    tensor-core peak (fp32: the CUDA-core peak).  Returns (ms, bound_by)."""
+    the operations the function needs over the bf16 tensor-core peak (fp32:
+    the CUDA-core peak).  Per chunk and head the intra-chunk terms C.B^T and
+    W.x need only the causal triangle, L(L+1)/2 entries; the inter-chunk
+    term C.state and the state update B^T.x are L*P*N each.  Returns
+    (ms, bound_by)."""
     B, _, H, P = x.shape
     N = Bm.shape[-1]
     el = x.element_size()
@@ -164,7 +164,8 @@ def ssd_bound(S: int, chunk: int, x, Bm, state0) -> tuple:
         + B * H * P * N * 4 * (2 if state0 is not None else 1)  # state0 in, state out
     )
     L, nc = chunk, S // chunk
-    flops = B * H * nc * (2 * L * L * N + 2 * L * L * P + 2 * 2 * L * P * N)
+    tri = L * (L + 1) // 2
+    flops = B * H * nc * (2 * tri * N + 2 * tri * P + 2 * 2 * L * P * N)
     peak = BF16_FLOPS_PER_S if el == 2 else FP32_FLOPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")

@@ -27,11 +27,11 @@ def _tree(np_tree, device):
     return _tensor(np_tree, device)
 
 
-def params_from_jax(np_tree: dict, device="cpu") -> dict:
+def params_from_jax(np_tree: dict, device) -> dict:
     """A JAX parameter tree (numpy leaves) as the port's parameter dict."""
     return _tree(np_tree, torch.device(device))
 
 
-def cache_from_jax(np_tree: dict, device="cpu") -> dict:
+def cache_from_jax(np_tree: dict, device) -> dict:
     """A JAX serving cache (``conv``, ``state``, ``len``) as the port's cache."""
     return _tree(np_tree, torch.device(device))

@@ -28,11 +28,12 @@
 //
 // Bound on this card.  For one Mamba2-1.3B layer and a 1024-token prompt
 // (B=1, H=64, P=64, G=1, N=128, chunk 256) the function moves ~19.7 MB
-// (5.9 us at 3.35 TB/s) and, counting the full LxL intra-chunk products per
-// head, does ~8.6 GFLOP (8.7 us at the 989 TFLOP/s bf16 tensor-core peak):
-// bound by operations.  This kernel uses no tensor cores (fp32 FMA peak is
-// 67 TFLOP/s) and at batch 1 its 64 blocks fill under half of the 132 SMs;
-// wgmma tiles and splitting a (b, h) over more blocks are later work.
+// (5.9 us at 3.35 TB/s) and, counting only the causal triangle of the LxL
+// intra-chunk products, does ~5.4 GFLOP (5.4 us at the 989 TFLOP/s bf16
+// tensor-core peak): bound by bytes, barely.  This kernel uses no tensor
+// cores (fp32 FMA peak is 67 TFLOP/s, where the same work takes 80 us) and
+// at batch 1 its 64 blocks fill under half of the 132 SMs; wgmma tiles and
+// splitting a (b, h) over more blocks are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
