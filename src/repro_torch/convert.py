@@ -1,8 +1,9 @@
 """Carry JAX parameter and cache trees across to the port's tensors.
 
-The JAX package keeps its weights as a nested dict of arrays; the port keeps
-the same nesting (``embed.tok/head``, ``blocks.{ln.w, wz, wx, wB, wC, wdt,
-conv_w, A_log, D, dt_bias, norm_g, wo}``, ``ln_f.w`` for Mamba2) as torch
+The JAX package keeps its weights as nested dicts and lists of arrays; the
+port keeps the same nesting (for Mamba2 ``embed.tok/head``, ``blocks.{ln.w,
+wz, wx, wB, wC, wdt, conv_w, A_log, D, dt_bias, norm_g, wo}``, ``ln_f.w``;
+for RecurrentGemma ``groups.b<i>_<kind>`` and the ``tail`` list) as torch
 tensors.  The trees arrive with numpy leaves (``jax.device_get`` or
 ``np.asarray`` per leaf), so this module needs no JAX; bf16 leaves arrive as
 ``ml_dtypes`` bfloat16 arrays and keep their bits.
@@ -24,6 +25,8 @@ def _tensor(leaf, device) -> torch.Tensor:
 def _tree(np_tree, device):
     if isinstance(np_tree, dict):
         return {k: _tree(v, device) for k, v in np_tree.items()}
+    if isinstance(np_tree, (list, tuple)):
+        return [_tree(v, device) for v in np_tree]
     return _tensor(np_tree, device)
 
 
@@ -33,5 +36,6 @@ def params_from_jax(np_tree: dict, device) -> dict:
 
 
 def cache_from_jax(np_tree: dict, device) -> dict:
-    """A JAX serving cache (``conv``, ``state``, ``len``) as the port's cache."""
+    """A JAX serving cache (``conv``, ``state``, ``len``; or ``groups``,
+    ``tail``, ``len``) as the port's cache."""
     return _tree(np_tree, torch.device(device))

@@ -15,6 +15,7 @@ import torch
 from repro_torch.core.interception import kernel_span
 
 from . import ref as _ref
+from .rglru_scan import rglru_scan
 from .ssd_scan import ssd_scan
 
 
@@ -24,6 +25,21 @@ def _on_card(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU
+# ---------------------------------------------------------------------------
+
+
+def rglru(x, r, i, lam, h0=None):
+    B, S, C = x.shape
+    flops = 6 * B * S * C
+    nbytes = 3 * B * S * C * x.element_size()
+    with kernel_span("rglru_scan", (B, S, C), flops, nbytes):
+        if _on_card(x):
+            return rglru_scan(x, r, i, lam, h0=h0)
+        return _ref.rglru_ref(x, r, i, lam, h0=h0)
 
 
 # ---------------------------------------------------------------------------
@@ -42,7 +58,11 @@ def ssd(x, dt, A_log, Bm, Cm, D, *, chunk: int = 64, state0=None):
         return _ref.ssd_ref(x, dt, A_log, Bm, Cm, D, chunk=chunk, state0=state0)
 
 
-# The JAX package has no TPU kernel for these two: plain PyTorch ops.
+# The JAX package has no TPU kernel for these three: plain PyTorch ops.
+
+
+def rglru_step(h, x_t, r_t, i_t, lam):
+    return _ref.rglru_step_ref(h, x_t, r_t, i_t, lam)
 
 
 def ssd_step(state, x_t, dt_t, A_log, B_t, C_t, D):

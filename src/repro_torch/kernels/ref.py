@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the kernels' functions (the oracles).
 
-Mirrors ``src/repro/kernels/ref.py`` for the SSM slice: the CPU path runs
+Mirrors ``src/repro/kernels/ref.py`` for the SSM and RG-LRU slices: the CPU path runs
 these, the card's kernels are held against them, and the tests hold them
 against the JAX references.
 """
@@ -10,6 +10,53 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+
+# ---------------------------------------------------------------------------
+# RG-LRU linear recurrence (Griffin / RecurrentGemma)
+# ---------------------------------------------------------------------------
+
+
+def rglru_scan_ref(a, b, h0=None):
+    """h_t = a_t ⊙ h_{t-1} + b_t over axis 1. a, b: [B,S,C] → (h, h_last).
+
+    A sequential fp32 loop over time: PyTorch has no associative scan, and a
+    closed form through ``exp(-cumsum(log a))`` overflows on long prompts.
+    ``h0`` enters as ``b_0 += a_0 · h0``.  Both results are fp32.
+    """
+    af = a.float()
+    bf = b.float()
+    h = torch.zeros_like(bf[:, 0]) if h0 is None else h0.float()
+    out = torch.empty_like(bf)
+    for t in range(af.shape[1]):
+        h = torch.addcmul(bf[:, t], af[:, t], h)
+        out[:, t] = h
+    return out, h
+
+
+def rglru_gates_ref(x, r, i, lam, c: float = 8.0):
+    """RG-LRU gate math: a_t = exp(-c·softplus(Λ)·σ(r_t)); b_t = √(1-a²)·(σ(i_t)·x_t)."""
+    log_a = -c * F.softplus(lam.float()) * torch.sigmoid(r.float())
+    a = torch.exp(log_a)
+    gated = torch.sigmoid(i.float()) * x.float()
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * gated
+    return a, b
+
+
+def rglru_ref(x, r, i, lam, h0=None, c: float = 8.0):
+    """x, r, i: [B,S,C]; lam: [C]; h0: [B,C] or None →
+    (y [B,S,C] in x's dtype, h_last [B,C] fp32)."""
+    a, b = rglru_gates_ref(x, r, i, lam, c)
+    h, h_last = rglru_scan_ref(a, b, h0)
+    return h.to(x.dtype), h_last
+
+
+def rglru_step_ref(h, x_t, r_t, i_t, lam, c: float = 8.0):
+    """Single decode step: returns (y_t in x_t's dtype, h' fp32)."""
+    a, b = rglru_gates_ref(x_t[:, None], r_t[:, None], i_t[:, None], lam, c)
+    h_new = a[:, 0] * h.float() + b[:, 0]
+    return h_new.to(x_t.dtype), h_new
+
 
 # ---------------------------------------------------------------------------
 # Mamba2 SSD (state-space duality, chunked)

@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, _checks
 
 #: the kernel's compile-time head width and state size (Mamba2-1.3B's)
 HEAD_DIM = 64
@@ -42,17 +42,6 @@ def _lib() -> ctypes.CDLL:
         lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _check(name: str, t: torch.Tensor, shape: tuple, dtype, device) -> None:
-    if t.device != device:
-        raise ValueError(f"ssd_scan: {name} is on {t.device}, x on {device}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"ssd_scan: {name} has shape {tuple(t.shape)}, want {shape}")
-    if t.dtype != dtype:
-        raise ValueError(f"ssd_scan: {name} has dtype {t.dtype}, want {dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"ssd_scan: {name} must be contiguous")
 
 
 def ssd_scan(
@@ -83,17 +72,17 @@ def ssd_scan(
     if G < 1 or H % G:
         raise ValueError(f"ssd_scan: heads {H} must divide into groups {G}")
     dev = x.device
-    _check("x", x, (B, S, H, P), x.dtype, dev)
-    _check("dt", dt, (B, S, H), torch.float32, dev)
-    _check("Bm", Bm, (B, S, G, N), x.dtype, dev)
-    _check("Cm", Cm, (B, S, G, N), x.dtype, dev)
+    _checks.check("ssd_scan", "x", x, (B, S, H, P), x.dtype, dev)
+    _checks.check("ssd_scan", "dt", dt, (B, S, H), torch.float32, dev)
+    _checks.check("ssd_scan", "Bm", Bm, (B, S, G, N), x.dtype, dev)
+    _checks.check("ssd_scan", "Cm", Cm, (B, S, G, N), x.dtype, dev)
     # [H] per-head scalars: the kernel reads them in fp32 (as ssd_ref does)
     A_log = A_log.float().contiguous()
     D = D.float().contiguous()
-    _check("A_log", A_log, (H,), torch.float32, dev)
-    _check("D", D, (H,), torch.float32, dev)
+    _checks.check("ssd_scan", "A_log", A_log, (H,), torch.float32, dev)
+    _checks.check("ssd_scan", "D", D, (H,), torch.float32, dev)
     if state0 is not None:
-        _check("state0", state0, (B, H, P, N), torch.float32, dev)
+        _checks.check("ssd_scan", "state0", state0, (B, H, P, N), torch.float32, dev)
     y = torch.empty_like(x)
     final = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
     lib = _lib()

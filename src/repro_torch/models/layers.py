@@ -1,14 +1,19 @@
-"""Shared building blocks of the SSM serving path: RMSNorm and embeddings.
+"""Shared building blocks: RMSNorm, RoPE, GQA attention, the GeGLU MLP,
+the ring KV cache and embeddings.
 
 Pure functions on tensors (params in, tensors out), mirroring the JAX
-package's ``models/layers.py`` for the pieces the Mamba2 family uses.
+package's ``models/layers.py`` for the pieces the Mamba2 and RecurrentGemma
+families use.  bf16 rounds where the JAX functions round: the QKᵀ and PV
+products run in the input dtype, the softmax and RoPE in fp32.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from .config import ModelConfig
 from .param import Spec
@@ -28,6 +33,169 @@ def norm_spec(cfg: ModelConfig, stacked: Optional[int] = None) -> dict:
     lead = (stacked,) if stacked else ()
     lax = ("layers",) if stacked else ()
     return {"w": Spec(lead + (cfg.d_model,), lax + ("embed",), "zeros")}
+
+
+def layer_slice(tree, l: int):
+    """Layer ``l`` of a dict tree of layer-stacked tensors."""
+    if isinstance(tree, torch.Tensor):
+        return tree[l]
+    return {k: layer_slice(v, l) for k, v in tree.items()}
+
+
+def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm != "rmsnorm":
+        raise NotImplementedError(f"norm {cfg.norm!r} is ported in a later slice, see ROADMAP.md")
+    return rmsnorm(x, p["w"])
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [B, S, H, hd]; positions: [B, S] or [S] (absolute)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = torch.exp(
+        -math.log(theta) * torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    )
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * freqs  # [B, S, half]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA; causal / window / decode)
+# ---------------------------------------------------------------------------
+
+
+def attend(
+    q: torch.Tensor,  # [B, S, H, hd]
+    k: torch.Tensor,  # [B, T, Kv, hd]
+    v: torch.Tensor,  # [B, T, Kv, hd]
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: Optional[torch.Tensor] = None,  # absolute position of q[., 0]
+    kv_len: Optional[torch.Tensor] = None,  # valid prefix length of k/v
+) -> torch.Tensor:
+    """Grouped-query attention with the JAX ``attend``'s unified masking.
+
+    ``q_offset`` positions the query block inside the key timeline (default
+    ``T - S``); ``kv_len`` masks cache slots beyond the valid prefix.  Masked
+    scores are -1e30 (not -inf), so a row with every key masked gets the
+    uniform softmax, as in the reference.  fp32 softmax.
+    """
+    B, S, H, hd = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    qg = q.reshape(B, S, Kv, G, hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float()
+    scores = scores / math.sqrt(hd)
+
+    qi = torch.arange(S, device=q.device)[:, None]  # [S, 1]
+    kj = torch.arange(T, device=q.device)[None, :]  # [1, T]
+    off = T - S if q_offset is None else q_offset
+    qabs = qi + off  # absolute query positions
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kj <= qabs)
+    if window is not None:
+        mask = mask & (kj > qabs - window)
+    mask_b = mask[None, :, :]
+    if kv_len is not None:
+        kvl = torch.as_tensor(kv_len, device=q.device).reshape(-1, 1, 1)
+        mask_b = mask_b & (kj[None] < kvl)
+    scores = torch.where(mask_b[:, None, None, :, :], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(B, S, H, hd)
+
+
+def attn_specs(cfg: ModelConfig, stacked: Optional[int] = None) -> dict:
+    d, H, Kv, hd = cfg.d_model, cfg.padded_heads, cfg.padded_kv_heads, cfg.head_dim_
+    lead = (stacked,) if stacked else ()
+    lax = ("layers",) if stacked else ()
+    s = {
+        "wq": Spec(lead + (d, H, hd), lax + ("embed", "heads", "head_dim")),
+        "wk": Spec(lead + (d, Kv, hd), lax + ("embed", "kv_heads", "head_dim")),
+        "wv": Spec(lead + (d, Kv, hd), lax + ("embed", "kv_heads", "head_dim")),
+        "wo": Spec(lead + (H, hd, d), lax + ("heads", "head_dim", "embed")),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = Spec(lead + (H, hd), lax + ("heads", "head_dim"), "zeros")
+        s["bk"] = Spec(lead + (Kv, hd), lax + ("kv_heads", "head_dim"), "zeros")
+        s["bv"] = Spec(lead + (Kv, hd), lax + ("kv_heads", "head_dim"), "zeros")
+    return s
+
+
+def qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: Optional[torch.Tensor] = None):
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    if positions is not None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_out(p: dict, ctx: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bshk,hkd->bsd", ctx, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def mlp_specs(cfg: ModelConfig, stacked: Optional[int] = None) -> dict:
+    if cfg.mlp_type != "geglu":
+        raise NotImplementedError(
+            f"mlp {cfg.mlp_type!r} is ported in a later slice, see ROADMAP.md"
+        )
+    d, ff = cfg.d_model, cfg.d_ff
+    lead = (stacked,) if stacked else ()
+    lax = ("layers",) if stacked else ()
+    return {
+        "w_gate": Spec(lead + (d, ff), lax + ("embed", "mlp")),
+        "w_up": Spec(lead + (d, ff), lax + ("embed", "mlp")),
+        "w_down": Spec(lead + (ff, d), lax + ("mlp", "embed")),
+    }
+
+
+def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """GeGLU.  ``jax.nn.gelu`` is the tanh approximation by default."""
+    if cfg.mlp_type != "geglu":
+        raise NotImplementedError(
+            f"mlp {cfg.mlp_type!r} is ported in a later slice, see ROADMAP.md"
+        )
+    return (F.gelu(x @ p["w_gate"], approximate="tanh") * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+
+def cache_update(cache_k, cache_v, k_new, v_new, lengths, window: Optional[int] = None):
+    """Insert one decode step's K/V at position ``lengths`` (a ring under a
+    window).  Returns new tensors; the caches passed in are left as they are."""
+    T = cache_k.shape[1]
+    idx = lengths.long() % T if window is not None else torch.clamp(lengths.long(), max=T - 1)
+    b = torch.arange(cache_k.shape[0], device=cache_k.device)
+    cache_k = cache_k.index_put((b, idx), k_new[:, 0])
+    cache_v = cache_v.index_put((b, idx), v_new[:, 0])
+    return cache_k, cache_v
 
 
 def embed_specs(cfg: ModelConfig) -> dict:

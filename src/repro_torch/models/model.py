@@ -1,4 +1,4 @@
-"""Model facade over the ported families (the SSM family in this slice).
+"""Model facade over the ported families (SSM and hybrid so far).
 
     m = Model(cfg)
     m.param_specs()            spec tree (shapes/init in one declaration)
@@ -11,11 +11,11 @@ from __future__ import annotations
 
 import torch
 
-from . import ssm
+from . import hybrid, ssm
 from .config import ModelConfig, ShapeSpec
 from .param import init as spec_init
 
-_FAMILY = {"ssm": ssm}
+_FAMILY = {"ssm": ssm, "hybrid": hybrid}
 
 
 class Model:

@@ -1,6 +1,7 @@
 """Parameter spec trees: one declaration drives init and shapes.
 
-A model declares its parameters as a nested dict of :class:`Spec` leaves;
+A model declares its parameters as a tree of dicts and lists with
+:class:`Spec` leaves;
 :func:`init` materializes it on a device from an explicit
 ``torch.Generator``, with the distributions of the JAX package's
 ``models/param.py`` (the random streams differ: tests that compare the two
@@ -21,7 +22,7 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int32": torch.i
 class Spec:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
-    init: str = "normal"  # normal | zeros | ones | ssm_a | ssm_dt
+    init: str = "normal"  # normal | zeros | ones | lru_a | ssm_a | ssm_dt
     scale: float = 0.02
     dtype: Optional[str] = None  # override model dtype
 
@@ -41,6 +42,10 @@ def _init_leaf(s: Spec, gen: torch.Generator, dtype: str) -> torch.Tensor:
         return torch.zeros(s.shape, dtype=dt, device=gen.device)
     if s.init == "ones":
         return torch.ones(s.shape, dtype=dt, device=gen.device)
+    if s.init == "lru_a":
+        # RG-LRU Λ init: a in [0.9, 0.999] → Λ = softplus^-1(-log(a)/c), c = 8
+        u = _uniform(s, gen, 0.9, 0.999)
+        return torch.log(torch.expm1(-torch.log(u) / 8.0)).to(dt)
     if s.init == "ssm_a":
         # Mamba2 A init: -uniform[1, 16], stored as log
         return torch.log(_uniform(s, gen, 1.0, 16.0)).to(dt)
@@ -55,14 +60,19 @@ def _init_leaf(s: Spec, gen: torch.Generator, dtype: str) -> torch.Tensor:
 
 def init(tree, gen: torch.Generator, dtype: str):
     """Materialize a spec tree on ``gen.device``; leaves draw in sorted-key
-    order, so one seed gives one set of weights."""
+    order within a dict and in index order within a list, so one seed gives
+    one set of weights."""
     if isinstance(tree, Spec):
         return _init_leaf(tree, gen, dtype)
+    if isinstance(tree, list):
+        return [init(v, gen, dtype) for v in tree]
     return {k: init(tree[k], gen, dtype) for k in sorted(tree)}
 
 
-def zeros(tree, dtype: str, device) -> dict:
+def zeros(tree, dtype: str, device):
     """A tree of zeros with each leaf's shape and dtype (serving caches)."""
     if isinstance(tree, Spec):
         return torch.zeros(tree.shape, dtype=DTYPES[tree.dtype or dtype], device=device)
+    if isinstance(tree, list):
+        return [zeros(v, dtype, device) for v in tree]
     return {k: zeros(v, dtype, device) for k, v in tree.items()}

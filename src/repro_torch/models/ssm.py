@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 
 from .config import ModelConfig
-from .layers import embed, embed_specs, norm_spec, rmsnorm, unembed
+from .layers import embed, embed_specs, layer_slice, norm_spec, rmsnorm, unembed
 from .param import Spec
 
 
@@ -55,13 +55,6 @@ def specs(cfg: ModelConfig) -> dict:
         },
         "ln_f": norm_spec(cfg),
     }
-
-
-def _layer(tree, l: int):
-    """Layer ``l`` of a tree of layer-stacked tensors."""
-    if isinstance(tree, torch.Tensor):
-        return tree[l]
-    return {k: _layer(v, l) for k, v in tree.items()}
 
 
 def _mix(cfg: ModelConfig, p: dict, h: torch.Tensor, conv_state=None):
@@ -115,7 +108,7 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int):
     h = embed(params["embed"], tokens)
     convs, states = [], []
     for l in range(cfg.num_layers):
-        pl = _layer(params["blocks"], l)
+        pl = layer_slice(params["blocks"], l)
         hn = rmsnorm(h, pl["ln"]["w"])
         z, xs, Bm, Cm, dt, conv_tail = _mix(cfg, pl, hn)
         # the split views are strided: the kernel takes contiguous tensors
@@ -149,7 +142,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
     h = embed(params["embed"], token[:, None])
     convs, states = [], []
     for l in range(cfg.num_layers):
-        pl = _layer(params["blocks"], l)
+        pl = layer_slice(params["blocks"], l)
         hn = rmsnorm(h, pl["ln"]["w"])
         z, xs, Bm, Cm, dt, conv_tail = _mix(cfg, pl, hn, conv_state=cache["conv"][l])
         y, ssm_new = kops.ssd_step(

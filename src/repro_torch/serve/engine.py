@@ -83,8 +83,11 @@ class ServeEngine:
         with prefill_span(r.rid, 1, S):
             batch = {"tokens": torch.as_tensor(r.prompt[None, :], device=self.device)}
             if S not in self._prefill_steps:  # one first-call record per prompt length
+                # the step captures the model, not the engine that holds the
+                # step, so no reference cycle keeps the engine alive
+                model, cache_len = self.model, self.cfg.cache_len
                 self._prefill_steps[S] = TracedStep(
-                    lambda p, b: self.model.prefill(p, b, self.cfg.cache_len),
+                    lambda p, b: model.prefill(p, b, cache_len),
                     name=f"prefill[{self.model.cfg.name}/S{S}]",
                     device=self.device,
                 )
@@ -92,14 +95,27 @@ class ServeEngine:
         first = int(torch.argmax(logits[0, 0, : self.model.cfg.vocab_size]))
         r.out_tokens.append(first)
         self._tok[slot] = first
-        for k, leaf in self.cache.items():
-            self._splice(leaf, row[k], slot)
+        self._splice_tree(self.cache, row, slot)
+
+    @classmethod
+    def _splice_tree(cls, cache, row, slot: int) -> None:
+        """Splice every leaf of a prefill row's cache tree (nested dicts and
+        lists, as the model's ``cache_specs`` declares them) into the live cache."""
+        if isinstance(cache, torch.Tensor):
+            cls._splice(cache, row, slot)
+        elif isinstance(cache, dict):
+            for k, leaf in cache.items():
+                cls._splice_tree(leaf, row[k], slot)
+        else:
+            for leaf, r in zip(cache, row, strict=True):
+                cls._splice_tree(leaf, r, slot)
 
     @staticmethod
     def _splice(cache_leaf: torch.Tensor, row_leaf: torch.Tensor, slot: int) -> None:
-        """Write the size-1-batch prefill row into ``cache_leaf`` at ``slot``.
-        The batch axis is the one where the shapes differ (layers lead; batch
-        follows); with one slot the row is the whole leaf."""
+        """Write the size-1-batch prefill row into ``cache_leaf`` at ``slot``,
+        cast to the leaf's current dtype.  The batch axis is the one where the
+        shapes differ (layers lead; batch follows); with one slot the row is
+        the whole leaf."""
         if row_leaf.shape == cache_leaf.shape:
             cache_leaf.copy_(row_leaf)
             return
