@@ -30,8 +30,28 @@ Phases, each fatal on failure:
      the RG-LRU kernel in each of the 18 recurrent blocks; profile a warm
      decode step and prefill.  Each serving run resets the launch counts
      just before it and reads them just after;
-  4. the full-mode polling fence, and the command-line launcher at full
-     width under a trace, for both models.
+  4. h2o-danube-1.8b: hold the flash-attention kernel against its plain
+     version in fp32 and bf16 (the JAX kernel tests' six cases, non-causal,
+     S > T under causal, a window without causal, a qwen-width MHA case at
+     d=128 and danube's prefill shapes, H=32, Kv=8, d=80, window 4096, at
+     S = 100, 1024, 4096 and 5000; fp32 within 2e-5 at the small shapes and
+     1e-4 at full width; bf16 within 2e-2 + 2e-2·|o_ref| at the small
+     shapes and 2e-3 + 2e-2·max|o_ref| of the row at full width) and time
+     it in bf16 beside its
+     plain version and the library's scaled_dot_product_attention (the
+     yardstick only; the port never calls it); hold a two-layer full-width
+     model on the card against the CPU in fp32 (a 600-token prompt,
+     cache_len 512: a rolled ring); serve the full-width model (24 layers,
+     bf16) with cache_len 4096 (the ring is the window) and prompts of 100,
+     512, 1024, 4096 (the ring is full, so decode wraps at once), 5000 (the
+     prefill ring is rolled and the window masks inside the kernel) and 512
+     tokens; check that every prefill ran the kernel in each of the 24
+     layers and no decode step did; profile a warm decode step and the
+     4096-token prefill;
+  5. the full-mode polling fence, and the command-line launcher at full
+     width under a trace, for the three models.
+traced_session and warm_step_times take the serving cache_len (2048 unless
+a phase says otherwise).
 Prints the card's name and power limit first, a ``{"kernels": [...]}`` line
 before the last, and ``{"ok": true, "device": {...}}`` last.  Exits non-zero,
 printing no result, without a CUDA card or outside a checkout.
@@ -62,6 +82,8 @@ SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 RGLRU_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 PROMPT_LENS = (100, 256, 512, 1024, 100, 512)
 RG_PROMPT_LENS = (100, 512, 1024, 2040, 3000, 512)
+DANUBE_PROMPT_LENS = (100, 512, 1024, 4096, 5000, 512)
+DANUBE_CACHE_LEN = 4096
 NEW_TOKENS = 16
 #: fp32 operations per element of the RG-LRU (4 exp, 2 divisions, a sqrt
 #: and ~13 adds, multiplies, maxima and FMAs), for its bound
@@ -89,6 +111,22 @@ def _to(tree, device):
 
 def _numel(tree) -> int:
     return sum(t.numel() for t in _leaves(tree))
+
+
+def _kernel_modules() -> tuple:
+    from repro_torch.kernels import flash_attention, rglru_scan, ssd_scan
+
+    return ssd_scan, rglru_scan, flash_attention
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for mod in _kernel_modules():
+        mod.launches = 0
+
+
+def read_launches() -> dict:
+    return {mod.__name__.rsplit(".", 1)[1]: mod.launches for mod in _kernel_modules()}
 
 
 def card_line() -> str:
@@ -136,12 +174,9 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def kernel_device_ms(fn, kernel: str, reps: int = 20):
-    """Device time per call of the CUDA kernels whose name holds ``kernel``,
-    from a torch.profiler trace of ``reps`` warm calls: the kernel's own run,
-    without the host time of its wrapper that CUDA events around one call
-    include when the host is slower than the card.  Raises if the profiler
-    records no such kernel."""
+def device_kernels(fn, reps: int = 20) -> dict:
+    """Device ms per call of each device operation ``fn`` runs, by name, from
+    a torch.profiler trace of ``reps`` warm calls."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -152,11 +187,30 @@ def kernel_device_ms(fn, kernel: str, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
-    if not us:
-        raise AssertionError(f"the profiler recorded no device kernel named like {kernel!r}")
-    return sum(us) / reps / 1e3
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / reps / 1e3
+    return by_name
+
+
+def kernel_device_ms(fn, kernel: str, reps: int = 20, tries: int = 3):
+    """Device time per call of the CUDA kernels whose name holds ``kernel``:
+    the kernel's own run, without the host time of its wrapper that CUDA
+    events around one call include when the host is slower than the card.
+    A profiler session now and then misses a kernel that ran, so a session
+    without it is taken again (and said so), up to ``tries`` sessions;
+    raises if none of them records such a kernel."""
+    for attempt in range(1, tries + 1):
+        seen = device_kernels(fn, reps)
+        ms = [t for name, t in seen.items() if kernel in name]
+        if ms:
+            if attempt > 1:
+                print(f"[profiler] {kernel}: recorded in session {attempt} of {tries}")
+            return sum(ms)
+        print(f"[profiler] {kernel}: session {attempt} of {tries} recorded no such kernel "
+              f"({len(seen)} other device operations)")
+    raise AssertionError(f"the profiler recorded no device kernel named like {kernel!r} in {tries} sessions")
 
 
 def profile_step(fn, label: str, tag: str) -> None:
@@ -426,6 +480,169 @@ def check_rglru() -> dict:
     }
 
 
+FLASH_CASES = [  # B, S, T, H, Kv, d, causal, window, full width
+    (1, 32, 32, 4, 4, 32, True, None, False),  # tests/test_kernels.py's six
+    (2, 64, 64, 8, 2, 16, True, None, False),
+    (2, 64, 64, 4, 1, 32, True, None, False),
+    (1, 48, 48, 2, 2, 64, True, 16, False),
+    (1, 16, 64, 4, 2, 32, True, None, False),
+    (3, 128, 128, 2, 1, 8, True, 32, False),
+    (2, 32, 32, 4, 2, 16, False, None, False),  # non-causal
+    (1, 80, 40, 4, 2, 16, True, None, False),  # S > T: rows with no key give mean(v)
+    (1, 96, 96, 4, 2, 32, False, 24, False),  # a window without causal
+    (1, 1024, 1024, 40, 40, 128, True, None, True),  # qwen1.5-32b's MHA width
+] + [(1, S, S, 32, 8, 80, True, 4096, True) for S in (100, 1024, 4096, 5000)]  # danube prefill
+#: the prompt lengths at which the kernel is timed (danube's heads, window 4096)
+FLASH_TIME_S = (1024, 4096, 5000)
+
+
+def flash_close(o, o_ref, dtype, full: bool) -> tuple:
+    """Whether the kernel's output ``o`` agrees with its plain version, and
+    the limit it was held to.  fp32: within 2e-5 (1e-4 at full width, sums
+    over up to 4096 keys) of each element.  bf16 at the small shapes: within
+    2e-2 + 2e-2·|o_ref| of each element.  bf16 at full width: within
+    2e-3 + 2e-2·max|o_ref| over the row.  The plain version rounds its
+    scores and probabilities to bf16 and the kernel does not, so their
+    difference follows the size of the row's terms, not of its sum, which
+    cancels: element-wise, rows of few keys need an atol of up to 7.5e-3,
+    while an atol of 2e-2 is as large as a late row's |o| (~0.02 at S=4096,
+    an average over thousands of keys) and would pass a fault there."""
+    import torch
+
+    o, o_ref = o.float(), o_ref.float()
+    if dtype == torch.float32:
+        tol = 1e-4 if full else 2e-5
+        return torch.allclose(o, o_ref, rtol=tol, atol=tol), f"rtol=atol={tol}"
+    if not full:
+        return torch.allclose(o, o_ref, rtol=2e-2, atol=2e-2), "rtol=atol=0.02"
+    limit = 2e-3 + 2e-2 * o_ref.abs().amax(dim=-1, keepdim=True)
+    return bool(((o - o_ref).abs() <= limit).all()), "0.002 + 0.02 max|o_ref| of the row"
+
+
+def flash_inputs(B, S, T, H, Kv, d, dtype, seed: int):
+    import torch
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    q = torch.randn(B, S, H, d, generator=g, device=DEVICE).to(dtype)
+    k = torch.randn(B, T, Kv, d, generator=g, device=DEVICE).to(dtype)
+    v = torch.randn(B, T, Kv, d, generator=g, device=DEVICE).to(dtype)
+    return q, k, v
+
+
+def flash_pairs(S: int, T: int, causal: bool, window) -> int:
+    """Kept (query, key) pairs of one head: query i sits at i + T - S."""
+    import numpy as np
+
+    qpos = np.arange(S, dtype=np.int64) + (T - S)
+    hi = np.minimum(qpos, T - 1) if causal else np.full(S, T - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window is not None else np.zeros(S, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_bound(q, k, causal: bool, window) -> tuple:
+    """Least time for one call: q, k, v read and o written once over HBM;
+    4 d FLOPs (QK^T and PV) per kept pair, head and batch entry over the bf16
+    tensor-core peak (fp32: the CUDA-core peak).  Returns (ms, bound_by)."""
+    B, S, H, d = q.shape
+    T = k.shape[1]
+    el = q.element_size()
+    nbytes = (2 * q.numel() + 2 * k.numel()) * el
+    flops = 4 * d * flash_pairs(S, T, causal, window) * H * B
+    peak = BF16_FLOPS_PER_S if el == 2 else FP32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa_call(q, k, v, window):
+    """The library yardstick: one scaled_dot_product_attention call on the
+    same inputs (heads moved to dim 1 as views).  Its is_causal aligns the
+    mask top-left, the kernel bottom-right: the same at S = T, which is all
+    it is timed at.  Where the window bites (some query sits window or more
+    past a key) it gets the kept set as a boolean mask instead."""
+    import torch
+    import torch.nn.functional as F
+
+    S, T = q.shape[1], k.shape[1]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if window is None or S <= window:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    qpos = torch.arange(S, device=q.device)[:, None] + (T - S)
+    kpos = torch.arange(T, device=q.device)[None, :]
+    band = (kpos <= qpos) & (kpos > qpos - window)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, enable_gqa=True)
+
+
+def check_flash() -> dict:
+    import torch
+
+    from repro_torch.kernels import flash_attention, ref
+
+    max_err = 0.0
+    seed = 100
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, T, H, Kv, d, causal, window, full in FLASH_CASES:
+            seed += 1
+            q, k, v = flash_inputs(B, S, T, H, Kv, d, dtype, seed)
+            o = flash_attention.flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            o_ref = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            err = (o.float() - o_ref.float()).abs().max().item()
+            close, limit = flash_close(o, o_ref, dtype, full)
+            ok = o.dtype == dtype and bool(torch.isfinite(o).all()) and close
+            if S > T and causal:  # rows before the first key: the mean of v, not 0
+                mean_v = v.float().mean(dim=1).repeat_interleave(H // Kv, dim=1)
+                ok = ok and flash_close(o[:, 0], mean_v, dtype, full)[0]
+            print(
+                f"[flash] {dtype} B={B} S={S} T={T} H={H} Kv={Kv} d={d} causal={causal} "
+                f"window={window}: max|do|={err:.3g} tol {limit} {'ok' if ok else 'MISMATCH'}"
+            )
+            if not ok:
+                raise AssertionError(f"flash_attention disagrees with flash_attention_ref at S={S} d={d} {dtype}")
+            max_err = max(max_err, err)
+
+    # times at the serving path's shapes: one layer's prefill of
+    # h2o-danube-1.8b, bf16, batch 1, window 4096
+    rows = {}
+    for S in FLASH_TIME_S:
+        q, k, v = flash_inputs(1, S, S, 32, 8, 80, torch.bfloat16, seed=7)
+        call = lambda: flash_attention.flash_attention(q, k, v, causal=True, window=4096)  # noqa: E731
+        ms = cuda_ms(call)
+        dev = kernel_device_ms(call, "flash_attention_kernel")
+        plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True, window=4096))
+        lib = sdpa_call(q, k, v, 4096)
+        lib_err = (lib().transpose(1, 2).float() - call().float()).abs().max().item()
+        if lib_err > 2e-2:
+            raise AssertionError(f"the library yardstick computes another function at S={S}: max|d|={lib_err:.3g}")
+        library = cuda_ms(lib)
+        bound, by = flash_bound(q, k, True, 4096)
+        rows[S] = (ms, dev, plain, library, bound, by)
+        print(
+            f"[flash-time] bf16 B=1 S={S} H=32 Kv=8 d=80 window 4096: kernel {ms:.4f} ms per call (CUDA events), "
+            f"{dev:.4f} ms on the device (profiler), plain {plain:.4f} ms, "
+            f"library scaled_dot_product_attention {library:.4f} ms (max|d| vs kernel {lib_err:.3g}), "
+            f"bound {bound:.5f} ms ({by}; {flash_pairs(S, S, True, 4096)} kept pairs per head)"
+        )
+        ran = sorted(device_kernels(lib, reps=5).items(), key=lambda kv: -kv[1])[:2]
+        print(f"[flash-time] library S={S}, the device kernels that ran (ms per call, profiler): "
+              + ("; ".join(f"{t:.4f} {name[:100]}" for name, t in ran) or "none recorded (not measured)"))
+    ms, dev, plain, library, bound, by = rows[FLASH_TIME_S[1]]
+    return {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:95",
+        "launches": None,  # filled from the serving run
+        "max_abs_err": max_err,
+        "ms": ms,
+        "device_ms": dev,
+        "plain_ms": plain,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": library,
+    }
+
+
 # ---------------------------------------------------------------------------
 # Reduced-depth full-width models on the card against the CPU
 # ---------------------------------------------------------------------------
@@ -500,13 +717,57 @@ def check_hybrid_against_cpu() -> None:
           f"2 decode steps and {len(names) - 3} cache leaves, card vs cpu max|d|={worst:.3g} (tol 1e-3) ok")
 
 
+def check_dense_against_cpu() -> None:
+    """Two full-width h2o-danube-1.8b layers, fp32: a 600-token prompt with
+    cache_len 512 (eff 512: the prefill ring is rolled) and two decode steps,
+    card (kernel) against CPU (plain) over logits and every cache leaf."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.layers import layer_slice, qkv
+
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b"), num_layers=2, dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(3))
+    params_cpu = _to(params, "cpu")
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, size=(1, 600))
+    # the kernel takes contiguous tensors: the projections' einsum gives them
+    x = params["embed"]["tok"][torch.as_tensor(toks, device=DEVICE)]
+    q, k, v = qkv(cfg, layer_slice(params["blocks"], 0)["attn"], x, torch.arange(600, device=DEVICE)[None])
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise AssertionError(f"non-contiguous projections: strides {q.stride()}, {k.stride()}, {v.stride()}")
+    print(f"[model-dn] q, k, v from the projections are contiguous (v strides {v.stride()})")
+    out = {}
+    for dev, p in ((DEVICE, params), ("cpu", params_cpu)):
+        logits, cache = model.prefill(p, {"tokens": torch.as_tensor(toks, device=dev)}, 512)
+        steps = [logits]
+        tok = torch.argmax(logits[:, 0, : cfg.vocab_size], -1)
+        for _ in range(2):
+            logits, cache = model.decode_step(p, cache, {"token": tok})
+            steps.append(logits)
+            tok = torch.argmax(logits[:, 0, : cfg.vocab_size], -1)
+        out[dev] = [t.float().cpu() for t in steps] + [t.float().cpu() for t in _leaves(cache)]
+    names = ["prefill", "decode1", "decode2", "cache k", "cache v", "cache len"]
+    errs = []
+    for name, a, b in zip(names, out[DEVICE], out["cpu"], strict=True):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"non-finite {name} on the card")
+        errs.append(f"{name} {(a - b).abs().max().item():.3g} (|x| up to {b.abs().max().item():.3g})")
+        if not torch.allclose(a, b, rtol=1e-3, atol=1e-3):
+            raise AssertionError(f"card and CPU disagree on {name}: max|d|={(a - b).abs().max().item():.3g}")
+    print(f"[model-dn] 2-layer full-width fp32, 600-token prompt, cache_len 512 (rolled ring), card vs cpu "
+          f"max|d| (tol 1e-3): {'; '.join(errs)} ok")
+
+
 # ---------------------------------------------------------------------------
 # Full-width traced serving
 # ---------------------------------------------------------------------------
 
 
-def traced_session(model, params, prompt_lens, rng, tag: str):
-    """Serve one request per prompt length (4 slots, cache_len 2048,
+def traced_session(model, params, prompt_lens, rng, tag: str, cache_len: int = 2048):
+    """Serve one request per prompt length (4 slots, ``cache_len``,
     NEW_TOKENS each) under a default-mode trace.  The kernels' launch counts
     are set to 0 just before the run and read just after it.  Checks what
     every serving run must show; returns (engine, tally, launches, decode
@@ -515,23 +776,22 @@ def traced_session(model, params, prompt_lens, rng, tag: str):
 
     from repro_torch.core import TraceConfig, Tracer
     from repro_torch.core.plugins.tally import render, tally_trace
-    from repro_torch.kernels import rglru_scan, ssd_scan
     from repro_torch.serve import ServeConfig, ServeEngine
 
     cfg = model.cfg
-    eng = ServeEngine(model, params, ServeConfig(batch_slots=4, cache_len=2048, max_new_tokens=NEW_TOKENS))
+    eng = ServeEngine(model, params, ServeConfig(batch_slots=4, cache_len=cache_len, max_new_tokens=NEW_TOKENS))
     for S in prompt_lens:
         eng.submit(rng.integers(0, cfg.vocab_size, size=(S,)))
     trace_dir = tempfile.mkdtemp(prefix="thapi_smoke_")
     try:
         torch.cuda.reset_peak_memory_stats()
-        ssd_scan.launches = rglru_scan.launches = 0
+        reset_launches()
         with Tracer(TraceConfig(out_dir=trace_dir, mode="default")):
             t0 = time.perf_counter()
             done = eng.run_until_drained()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        launches = {"ssd_scan": ssd_scan.launches, "rglru_scan": rglru_scan.launches}
+        launches = read_launches()
         peak = torch.cuda.max_memory_allocated()
         tally = tally_trace(trace_dir)
         print(render(tally, top=12))
@@ -560,14 +820,14 @@ def traced_session(model, params, prompt_lens, rng, tag: str):
     return eng, tally, launches, decode.calls
 
 
-def warm_step_times(model, params, eng, prompt_lens, rng, tag: str) -> None:
+def warm_step_times(model, params, eng, prompt_lens, rng, tag: str, cache_len: int = 2048) -> None:
     """Warm step times outside the trace: host time to enqueue the step vs
     time to its completion (equal when the host, not the card, bounds it)."""
     import torch
 
     for S in sorted(set(prompt_lens)):
         toks = torch.as_tensor(rng.integers(0, model.cfg.vocab_size, size=(1, S)), device=DEVICE)
-        host, done_ms = host_vs_device(lambda: model.prefill(params, {"tokens": toks}, 2048))
+        host, done_ms = host_vs_device(lambda: model.prefill(params, {"tokens": toks}, cache_len))
         print(f"[{tag}] prefill S={S}: {done_ms:.2f} ms to completion, host enqueue {host:.2f} ms (median of 5, warm)")
     tok = torch.zeros(eng.cfg.batch_slots, dtype=torch.long, device=DEVICE)
     host, done_ms = host_vs_device(lambda: model.decode_step(params, eng.cache, {"token": tok}))
@@ -665,6 +925,35 @@ def serve_recurrentgemma() -> dict:
     return {"rglru_scan": launches["rglru_scan"]}
 
 
+def serve_danube() -> dict:
+    """Full-width h2o-danube-1.8b: every prefill runs the flash-attention
+    kernel once in each layer; decode attends with the plain ``attend``."""
+    import numpy as np
+    import torch
+
+    model, params = init_full_width("h2o-danube-1.8b", "serve-dn")
+    L = model.cfg.num_layers
+    rng = np.random.default_rng(2)
+    eng, _, launches, steps = traced_session(
+        model, params, DANUBE_PROMPT_LENS, rng, "serve-dn", cache_len=DANUBE_CACHE_LEN
+    )
+    n = len(DANUBE_PROMPT_LENS)
+    if eng.cache["k"].shape[2] != DANUBE_CACHE_LEN:
+        raise AssertionError(f"ring of {eng.cache['k'].shape[2]} rows, want {DANUBE_CACHE_LEN}")
+    if not (torch.isfinite(eng.cache["k"].float()).all() and torch.isfinite(eng.cache["v"].float()).all()):
+        raise AssertionError("non-finite k/v cache")
+    if launches != {"ssd_scan": 0, "rglru_scan": 0, "flash_attention": L * n}:
+        raise AssertionError(f"launches {launches}: want flash_attention = {L} layers x {n} prefills, no other kernel")
+    print(f"[serve-dn] flash_attention launches {launches['flash_attention']} = {L} layers x {n} prefills "
+          f"(none in the {steps} decode steps)")
+    warm_step_times(model, params, eng, DANUBE_PROMPT_LENS, rng, "serve-dn", cache_len=DANUBE_CACHE_LEN)
+    tok = torch.zeros(eng.cfg.batch_slots, dtype=torch.long, device=DEVICE)
+    profile_step(lambda: model.decode_step(params, eng.cache, {"token": tok}), "decode step (4 slots)", "serve-dn")
+    toks = torch.as_tensor(rng.integers(0, model.cfg.vocab_size, size=(1, 4096)), device=DEVICE)
+    profile_step(lambda: model.prefill(params, {"tokens": toks}, DANUBE_CACHE_LEN), "prefill S=4096", "serve-dn")
+    return {"flash_attention": launches["flash_attention"]}
+
+
 # ---------------------------------------------------------------------------
 # The full-mode polling fence, and the command-line entry point
 # ---------------------------------------------------------------------------
@@ -696,30 +985,32 @@ def check_full_mode_fence() -> None:
 
 def serve_launcher() -> None:
     """The command a user runs, at full width under a trace, for each model:
-    Mamba2 with 4 requests of 512 tokens, RecurrentGemma with its defaults
-    (8 requests of 16 tokens, cache_len 64, so a 64-row ring)."""
+    Mamba2 with 4 requests of 512 tokens, RecurrentGemma and h2o-danube with
+    the defaults (8 requests of 16 tokens, cache_len 64, so a 64-row ring)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import rglru_scan, ssd_scan
     from repro_torch.launch import serve
 
     runs = [
         ("mamba2-1.3b", ["--requests", "4", "--prompt-len", "512", "--new-tokens", "8"]),
         ("recurrentgemma-2b", []),
+        ("h2o-danube-1.8b", []),
     ]
     for arch, extra in runs:
         trace_dir = tempfile.mkdtemp(prefix="thapi_launch_")
         try:
-            ssd_scan.launches = rglru_scan.launches = 0
+            reset_launches()
             rc = serve.main(["--arch", arch, "--full", "--trace", "default", "--trace-dir", trace_dir, *extra])
-            launches = {"ssd_scan": ssd_scan.launches, "rglru_scan": rglru_scan.launches}
+            launches = read_launches()
         finally:
             shutil.rmtree(trace_dir, ignore_errors=True)
         cfg = get_config(arch)
         if arch == "mamba2-1.3b":
-            ok = launches == {"ssd_scan": cfg.num_layers * 4, "rglru_scan": 0}
+            ok = launches == {"ssd_scan": cfg.num_layers * 4, "rglru_scan": 0, "flash_attention": 0}
+        elif arch == "h2o-danube-1.8b":  # 8 prefills, each through every layer
+            ok = launches == {"ssd_scan": 0, "rglru_scan": 0, "flash_attention": cfg.num_layers * 8}
         else:  # 8 prefills and at least 7 decode steps, each through every recurrent block
             n_rec = cfg.block_counts()[1]
-            ok = launches["ssd_scan"] == 0 and launches["rglru_scan"] % n_rec == 0 and (
+            ok = launches["ssd_scan"] == launches["flash_attention"] == 0 and launches["rglru_scan"] % n_rec == 0 and (
                 launches["rglru_scan"] >= n_rec * (8 + 7)
             )
         if rc != 0 or not ok:
@@ -742,13 +1033,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     build_kernels()
     # Mamba2's phases first, in slice 1's order, so that their readings are
-    # taken after the same work as before; then RecurrentGemma's
+    # taken after the same work as before; then RecurrentGemma's, then
+    # h2o-danube-1.8b's
     kernels = [check_ssd()]
     check_model_against_cpu()
     launches = serve_full_width()
     kernels.append(check_rglru())
     check_hybrid_against_cpu()
     launches.update(serve_recurrentgemma())
+    kernels.append(check_flash())
+    check_dense_against_cpu()
+    launches.update(serve_danube())
     check_full_mode_fence()
     serve_launcher()
     for k in kernels:

@@ -3,8 +3,9 @@
 The JAX package keeps its weights as nested dicts and lists of arrays; the
 port keeps the same nesting (for Mamba2 ``embed.tok/head``, ``blocks.{ln.w,
 wz, wx, wB, wC, wdt, conv_w, A_log, D, dt_bias, norm_g, wo}``, ``ln_f.w``;
-for RecurrentGemma ``groups.b<i>_<kind>`` and the ``tail`` list) as torch
-tensors.  The trees arrive with numpy leaves (``jax.device_get`` or
+for RecurrentGemma ``groups.b<i>_<kind>`` and the ``tail`` list; for the
+dense family ``embed.{tok,head}``, ``blocks.{attn.{wq,wk,wv,wo[,bq,bk,bv]},
+mlp.{w_gate,w_up,w_down}, ln1, ln2}``, ``ln_f``) as torch tensors.  The trees arrive with numpy leaves (``jax.device_get`` or
 ``np.asarray`` per leaf), so this module needs no JAX; bf16 leaves arrive as
 ``ml_dtypes`` bfloat16 arrays and keep their bits.
 """
@@ -36,6 +37,7 @@ def params_from_jax(np_tree: dict, device) -> dict:
 
 
 def cache_from_jax(np_tree: dict, device) -> dict:
-    """A JAX serving cache (``conv``, ``state``, ``len``; or ``groups``,
-    ``tail``, ``len``) as the port's cache."""
+    """A JAX serving cache (``conv``, ``state``, ``len``; ``groups``,
+    ``tail``, ``len``; or the dense ``k``, ``v``, ``len``) as the port's
+    cache."""
     return _tree(np_tree, torch.device(device))

@@ -10,10 +10,13 @@ eager PyTorch records one span per call where JAX records one per trace.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core.interception import kernel_span
 
+from . import flash_attention as _flash
 from . import ref as _ref
 from .rglru_scan import rglru_scan
 from .ssd_scan import ssd_scan
@@ -25,6 +28,22 @@ def _on_card(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+# ---------------------------------------------------------------------------
+# Flash attention
+# ---------------------------------------------------------------------------
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None):
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    flops = 4 * B * H * S * T * hd // (2 if causal else 1)
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v)) * 2
+    with kernel_span("flash_attention", (B, H, S), flops, nbytes):
+        if _on_card(q):
+            return _flash.flash_attention(q, k, v, causal=causal, window=window)
+        return _ref.flash_attention_ref(q, k, v, causal=causal, window=window)
 
 
 # ---------------------------------------------------------------------------

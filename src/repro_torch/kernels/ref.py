@@ -1,16 +1,47 @@
 """Plain PyTorch versions of the kernels' functions (the oracles).
 
-Mirrors ``src/repro/kernels/ref.py`` for the SSM and RG-LRU slices: the CPU path runs
-these, the card's kernels are held against them, and the tests hold them
-against the JAX references.
+Mirrors ``src/repro/kernels/ref.py``: the CPU path runs these, the card's
+kernels are held against them, and the tests hold them against the JAX
+references.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+# ---------------------------------------------------------------------------
+# Flash attention (causal / windowed GQA)
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None):
+    """Materialized-scores attention. q: [B,S,H,d], k/v: [B,T,Kv,d] → [B,S,H,d].
+
+    The query at row i sits at position i + T - S.  Scores in fp32, masked
+    to -1e30 (finite: a row with no unmasked key gets the uniform softmax,
+    the mean of v over all T keys), softmax in fp32, probabilities cast to
+    q's dtype before the PV product.
+    """
+    B, S, H, hd = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    qg = q.reshape(B, S, Kv, G, hd)
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k).float() / math.sqrt(hd)
+    qi = torch.arange(S, device=q.device)[:, None] + (T - S)
+    kj = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kj <= qi)
+    if window is not None:
+        mask = mask & (kj > qi - window)
+    s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bkgst,btkd->bskgd", p, v).reshape(B, S, H, hd)
+
 
 # ---------------------------------------------------------------------------
 # RG-LRU linear recurrence (Griffin / RecurrentGemma)

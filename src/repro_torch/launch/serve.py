@@ -4,6 +4,8 @@
         --full --requests 8 --trace default
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \
         --full --trace default
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
+        --full --trace default
 
 Runs on CUDA unless ``--device cpu`` is given; without a card it raises
 rather than fall back.  ``--full`` serves the published width (weights are

@@ -43,6 +43,7 @@ from .layers import (
     layer_slice,
     mlp_specs,
     norm_spec,
+    prefill_rows,
     qkv,
     unembed,
 )
@@ -180,7 +181,6 @@ def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
 
 def _prefill_block(cfg, kind, p, x, positions, eff):
     """Apply block and return its serving state."""
-    S = x.shape[1]
     h = apply_norm(cfg, p["ln1"], x)
     if kind == "rec":
         y, (conv_tail, h_last) = rec_mix(cfg, p["rec"], h)
@@ -190,15 +190,7 @@ def _prefill_block(cfg, kind, p, x, positions, eff):
         q, k, v = qkv(cfg, p["attn"], h, positions)
         ctx = attend(q, k, v, causal=True, window=cfg.rglru.local_window)
         x = x + attn_out(p["attn"], ctx)
-        # ring placement: position t lives at row t % eff
-        if S >= eff:
-            kk, vv = k[:, -eff:], v[:, -eff:]
-            if S > eff:
-                kk = torch.roll(kk, S % eff, dims=1)
-                vv = torch.roll(vv, S % eff, dims=1)
-        else:
-            kk, vv = F.pad(k, (0, 0, 0, 0, 0, eff - S)), F.pad(v, (0, 0, 0, 0, 0, eff - S))
-        st = {"k": kk, "v": vv}
+        st = {"k": prefill_rows(k, eff, ring=True), "v": prefill_rows(v, eff, ring=True)}
     h = apply_norm(cfg, p["ln2"], x)
     return x + apply_mlp(cfg, p["mlp"], h), st
 

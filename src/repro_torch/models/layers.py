@@ -1,9 +1,9 @@
-"""Shared building blocks: RMSNorm, RoPE, GQA attention, the GeGLU MLP,
-the ring KV cache and embeddings.
+"""Shared building blocks: RMSNorm and LayerNorm, RoPE, GQA attention, the
+SwiGLU and GeGLU MLPs, the (ring) KV cache and embeddings.
 
 Pure functions on tensors (params in, tensors out), mirroring the JAX
-package's ``models/layers.py`` for the pieces the Mamba2 and RecurrentGemma
-families use.  bf16 rounds where the JAX functions round: the QKᵀ and PV
+package's ``models/layers.py`` for the pieces the Mamba2, RecurrentGemma and
+dense families use.  bf16 rounds where the JAX functions round: the QKᵀ and PV
 products run in the input dtype, the softmax and RoPE in fp32.
 """
 
@@ -27,11 +27,24 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     return (x * (1.0 + w.float())).to(dt)
 
 
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in fp32 (biased variance), gain ``w`` and bias ``b``."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * w.float() + b.float()).to(dt)
+
+
 def norm_spec(cfg: ModelConfig, stacked: Optional[int] = None) -> dict:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is ported in a later slice, see ROADMAP.md")
     lead = (stacked,) if stacked else ()
     lax = ("layers",) if stacked else ()
+    if cfg.norm == "layernorm":
+        return {
+            "w": Spec(lead + (cfg.d_model,), lax + ("embed",), "ones"),
+            "b": Spec(lead + (cfg.d_model,), lax + ("embed",), "zeros"),
+        }
     return {"w": Spec(lead + (cfg.d_model,), lax + ("embed",), "zeros")}
 
 
@@ -43,8 +56,8 @@ def layer_slice(tree, l: int):
 
 
 def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is ported in a later slice, see ROADMAP.md")
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["w"], p["b"])
     return rmsnorm(x, p["w"])
 
 
@@ -159,7 +172,7 @@ def attn_out(p: dict, ctx: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_specs(cfg: ModelConfig, stacked: Optional[int] = None) -> dict:
-    if cfg.mlp_type != "geglu":
+    if cfg.mlp_type not in ("swiglu", "geglu"):
         raise NotImplementedError(
             f"mlp {cfg.mlp_type!r} is ported in a later slice, see ROADMAP.md"
         )
@@ -174,17 +187,43 @@ def mlp_specs(cfg: ModelConfig, stacked: Optional[int] = None) -> dict:
 
 
 def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """GeGLU.  ``jax.nn.gelu`` is the tanh approximation by default."""
-    if cfg.mlp_type != "geglu":
-        raise NotImplementedError(
-            f"mlp {cfg.mlp_type!r} is ported in a later slice, see ROADMAP.md"
-        )
-    return (F.gelu(x @ p["w_gate"], approximate="tanh") * (x @ p["w_up"])) @ p["w_down"]
+    """SwiGLU or GeGLU.  ``jax.nn.gelu`` is the tanh approximation by default."""
+    if cfg.mlp_type == "swiglu":
+        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    if cfg.mlp_type == "geglu":
+        return (F.gelu(x @ p["w_gate"], approximate="tanh") * (x @ p["w_up"])) @ p["w_down"]
+    raise NotImplementedError(f"mlp {cfg.mlp_type!r} is ported in a later slice, see ROADMAP.md")
 
 
 # ---------------------------------------------------------------------------
 # KV cache
 # ---------------------------------------------------------------------------
+
+
+def kv_cache_specs(cfg: ModelConfig, batch: int, cache_len: int, layers: int) -> dict:
+    """Layer-stacked K/V cache of ``eff = min(cache_len, window)`` rows (a
+    ring under a sliding window) and the absolute length per batch row."""
+    Kv, hd = cfg.padded_kv_heads, cfg.head_dim_
+    eff = cache_len if cfg.sliding_window is None else min(cache_len, cfg.sliding_window)
+    return {
+        "k": Spec((layers, batch, eff, Kv, hd), ("layers", "batch", "seq", "kv_heads", "head_dim")),
+        "v": Spec((layers, batch, eff, Kv, hd), ("layers", "batch", "seq", "kv_heads", "head_dim")),
+        "len": Spec((batch,), ("batch",), "zeros", dtype="int32"),
+    }
+
+
+def prefill_rows(t: torch.Tensor, eff: int, ring: bool) -> torch.Tensor:
+    """The ``eff`` cache rows a prefill of ``t [B,S,Kv,hd]`` leaves: rows
+    ``[0, S)`` and zeros when the prompt is shorter, else the last ``eff``
+    positions, rolled under a ring so that position ``p`` sits at row
+    ``p % eff``."""
+    S = t.shape[1]
+    if S < eff:
+        return F.pad(t, (0, 0, 0, 0, 0, eff - S))
+    kept = t[:, -eff:]
+    if ring and S > eff:
+        kept = torch.roll(kept, S % eff, dims=1)
+    return kept
 
 
 def cache_update(cache_k, cache_v, k_new, v_new, lengths, window: Optional[int] = None):

@@ -1,4 +1,4 @@
-"""Model facade over the ported families (SSM and hybrid so far).
+"""Model facade over the ported families (SSM, hybrid and dense so far).
 
     m = Model(cfg)
     m.param_specs()            spec tree (shapes/init in one declaration)
@@ -11,11 +11,11 @@ from __future__ import annotations
 
 import torch
 
-from . import hybrid, ssm
+from . import hybrid, ssm, transformer
 from .config import ModelConfig, ShapeSpec
 from .param import init as spec_init
 
-_FAMILY = {"ssm": ssm, "hybrid": hybrid}
+_FAMILY = {"ssm": ssm, "hybrid": hybrid, "dense": transformer}
 
 
 class Model:
