@@ -30,7 +30,10 @@ Phases, each fatal on failure:
      the RG-LRU kernel in each of the 18 recurrent blocks; profile a warm
      decode step and prefill.  Each serving run resets the launch counts
      just before it and reads them just after;
-  4. h2o-danube-1.8b: hold the flash-attention kernel against its plain
+  4. h2o-danube-1.8b: count the HGMMA (wgmma) instructions in the SASS of
+     each bf16 flash-attention instance (cuobjdump, where the toolkit has
+     it; every bf16 instance must hold some); hold the flash-attention
+     kernels (bf16: tensor cores; fp32: CUDA cores) against their plain
      version in fp32 and bf16 (the JAX kernel tests' six cases, non-causal,
      S > T under causal, a window without causal, a qwen-width MHA case at
      d=128 and danube's prefill shapes, H=32, Kv=8, d=80, window 4096, at
@@ -47,7 +50,8 @@ Phases, each fatal on failure:
      prefill ring is rolled and the window masks inside the kernel) and 512
      tokens; check that every prefill ran the kernel in each of the 24
      layers and no decode step did; profile a warm decode step and the
-     4096-token prefill;
+     4096- and 5000-token prefills, with the flash kernel's share of each
+     prefill's device time;
   5. the full-mode polling fence, and the command-line launcher at full
      width under a trace, for the three models.
 traced_session and warm_step_times take the serving cache_len (2048 unless
@@ -213,11 +217,12 @@ def kernel_device_ms(fn, kernel: str, reps: int = 20, tries: int = 3):
     raise AssertionError(f"the profiler recorded no device kernel named like {kernel!r} in {tries} sessions")
 
 
-def profile_step(fn, label: str, tag: str) -> None:
+def profile_step(fn, label: str, tag: str, kernel: str = "") -> None:
     """One warm call of ``fn`` under torch.profiler: wall time to completion,
     the card's busy time (the kernels' and copies' device intervals; one
-    stream, so they do not overlap), its idle share, and the kernels that
-    take the most device time."""
+    stream, so they do not overlap), its idle share, the kernels that take
+    the most device time, and the share of the busy time taken by the
+    kernels whose name holds ``kernel`` (when given)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -242,6 +247,12 @@ def profile_step(fn, label: str, tag: str) -> None:
           f"({len(dev)} device ops), idle share {1 - busy / wall:.3f}")
     for name, ms in top:
         print(f"[{tag}]   {ms:8.3f} ms  {name[:110]}")
+    if kernel:
+        mine = [(n, ms) for n, ms in by_name.items() if kernel in n]
+        ms = sum(t for _, t in mine)
+        calls = sum(1 for e in dev if kernel in e.name)
+        print(f"[{tag}] profile {label}: {kernel} {ms:.3f} ms of the {busy:.2f} ms busy "
+              f"({ms / busy:.3f}), {calls} launches")
 
 
 # ---------------------------------------------------------------------------
@@ -501,8 +512,10 @@ def flash_close(o, o_ref, dtype, full: bool) -> tuple:
     the limit it was held to.  fp32: within 2e-5 (1e-4 at full width, sums
     over up to 4096 keys) of each element.  bf16 at the small shapes: within
     2e-2 + 2e-2·|o_ref| of each element.  bf16 at full width: within
-    2e-3 + 2e-2·max|o_ref| over the row.  The plain version rounds its
-    scores and probabilities to bf16 and the kernel does not, so their
+    2e-3 + 2e-2·max|o_ref| over the row.  Both round the probabilities to
+    bf16 before PV, but the kernel keeps its scores in fp32 where the plain
+    version's bf16 product rounds them, and it rounds unnormalised
+    probabilities where the plain version rounds normalised ones, so their
     difference follows the size of the row's terms, not of its sum, which
     cancels: element-wise, rows of few keys need an atol of up to 7.5e-3,
     while an atol of 2e-2 is as large as a late row's |o| (~0.02 at S=4096,
@@ -572,11 +585,45 @@ def sdpa_call(q, k, v, window):
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, enable_gqa=True)
 
 
+def hgmma_counts() -> dict:
+    """HGMMA (the SASS of wgmma) instructions in each bf16 flash-attention
+    instance of the built library, by head width, from ``cuobjdump -sass``;
+    empty when the toolkit has no cuobjdump (printed as not measured)."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        print("[sass] flash_attention: no cuobjdump in the toolkit; HGMMA count not measured")
+        return {}
+    lib = os.path.join(_build.BUILD_DIR, "libflash_attention.so")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=300, check=True).stdout
+    counts: dict = {}
+    fn = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"flash_attention_wgmma_kernelILi(\d+)E", line)
+            fn = int(m.group(1)) if m else None
+            if fn is not None:
+                counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    print(f"[sass] flash_attention_wgmma_kernel HGMMA instructions by head width: {counts} "
+          f"(total {sum(counts.values())})")
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+
+    if sorted(counts) != sorted(HEAD_DIMS) or not all(counts.values()):
+        raise AssertionError(f"a bf16 flash-attention instance holds no HGMMA instruction: {counts}")
+    return counts
+
+
 def check_flash() -> dict:
     import torch
 
     from repro_torch.kernels import flash_attention, ref
 
+    hgmma = hgmma_counts()
     max_err = 0.0
     seed = 100
     for dtype in (torch.float32, torch.bfloat16):
@@ -608,7 +655,7 @@ def check_flash() -> dict:
         q, k, v = flash_inputs(1, S, S, 32, 8, 80, torch.bfloat16, seed=7)
         call = lambda: flash_attention.flash_attention(q, k, v, causal=True, window=4096)  # noqa: E731
         ms = cuda_ms(call)
-        dev = kernel_device_ms(call, "flash_attention_kernel")
+        dev = kernel_device_ms(call, "flash_attention_wgmma_kernel")
         plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True, window=4096))
         lib = sdpa_call(q, k, v, 4096)
         lib_err = (lib().transpose(1, 2).float() - call().float()).abs().max().item()
@@ -640,6 +687,7 @@ def check_flash() -> dict:
         "bound_ms": bound,
         "bound_by": by,
         "library_ms": library,
+        "hgmma": sum(hgmma.values()) if hgmma else "not measured",
     }
 
 
@@ -949,8 +997,10 @@ def serve_danube() -> dict:
     warm_step_times(model, params, eng, DANUBE_PROMPT_LENS, rng, "serve-dn", cache_len=DANUBE_CACHE_LEN)
     tok = torch.zeros(eng.cfg.batch_slots, dtype=torch.long, device=DEVICE)
     profile_step(lambda: model.decode_step(params, eng.cache, {"token": tok}), "decode step (4 slots)", "serve-dn")
-    toks = torch.as_tensor(rng.integers(0, model.cfg.vocab_size, size=(1, 4096)), device=DEVICE)
-    profile_step(lambda: model.prefill(params, {"tokens": toks}, DANUBE_CACHE_LEN), "prefill S=4096", "serve-dn")
+    for S in (4096, 5000):
+        toks = torch.as_tensor(rng.integers(0, model.cfg.vocab_size, size=(1, S)), device=DEVICE)
+        profile_step(lambda t=toks: model.prefill(params, {"tokens": t}, DANUBE_CACHE_LEN), f"prefill S={S}",
+                     "serve-dn", kernel="flash_attention_wgmma_kernel")
     return {"flash_attention": launches["flash_attention"]}
 
 

@@ -4,11 +4,17 @@ of ``csrc/flash_attention.cu``.
 Replaces the TPU kernel
 ``src/repro/kernels/flash_attention.py::flash_attention_pallas`` and computes
 what ``ref.flash_attention_ref`` computes.  The design and its bound are
-noted in the CUDA source.
+noted in the CUDA source: bf16 runs the warpgroup tensor-core (``wgmma``)
+kernel, fp32 the CUDA-core one.
 
 ``q`` is ``[B,S,H,d]``, ``k`` and ``v`` are ``[B,T,Kv,d]``, all in one dtype
 (fp32 or bf16) and contiguous, with ``H % Kv == 0`` and ``d`` one of
-:data:`HEAD_DIMS`.  Returns ``o [B,S,H,d]`` in q's dtype.
+:data:`HEAD_DIMS`; bf16 tensors start 16-byte aligned (the kernel copies 16
+bytes at a time).  Returns ``o [B,S,H,d]`` in q's dtype.
+
+:func:`kernel_plan` reads the bf16 kernel's tiling from the CUDA source
+(``flash_attention_plan``), for the card tests to hold against the mirror
+that ``tests/test_torch_flash_plan.py`` checks on the CPU.
 """
 
 from __future__ import annotations
@@ -44,7 +50,25 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
+        lib.flash_attention_plan.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+        lib.flash_attention_plan.restype = ctypes.c_int
     return lib
+
+
+def kernel_plan(d: int, S: int, T: int, causal: bool, window: Optional[int], qt: int) -> dict:
+    """The CUDA source's own tiling values for head width ``d`` and query
+    tile ``qt`` (builds the library): padded width, shared-memory bytes, and
+    the ``band`` of the block and of its two warpgroups (zeros for a
+    warpgroup with no row below S)."""
+    out = (ctypes.c_int * 14)()
+    has_window = window is not None
+    rc = _lib().flash_attention_plan(d, S, T, int(causal), int(has_window),
+                                     int(window) if has_window else 0, qt, out)
+    if rc != 0:
+        raise ValueError(f"flash_attention_plan refused d={d} S={S} T={T} qt={qt}")
+    v = list(out)
+    return {"dp": v[0], "smem": v[1], "block": tuple(v[2:6]),
+            "warpgroups": (tuple(v[6:10]), tuple(v[10:14]))}
 
 
 def flash_attention(
@@ -83,6 +107,10 @@ def flash_attention(
     _checks.check("flash_attention", "q", q, (B, S, H, d), q.dtype, dev, ref="q")
     for name, t in (("k", k), ("v", v)):
         _checks.check("flash_attention", name, t, (B, T, Kv, d), q.dtype, dev, ref="q")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention: bf16 {name} must start 16-byte aligned")
     o = torch.empty_like(q)
     lib = _lib()
     with torch.cuda.device(dev):

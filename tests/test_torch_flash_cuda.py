@@ -9,8 +9,14 @@ it also runs on the machine with the card:
 
 Tolerances: fp32 2e-5 at the small shapes and 1e-4 from S = 256 up (the
 same fp32 arithmetic in another order, summed over up to 1024 keys); bf16
-2e-2 (both compute the scores in fp32 from the same bf16 inputs; the plain
-version rounds the probabilities to bf16 before PV, the kernel does not).
+2e-2 (both round the probabilities to bf16 before PV; the kernel keeps its
+scores in fp32 where the plain version's bf16 product rounds them, and it
+rounds unnormalised probabilities where the plain version rounds
+normalised ones).
+
+bf16 runs the tensor-core kernel, with 128-row query tiles and 64-key K/V
+tiles: ``TILE_CASES`` straddle both tile edges, ragged S and T, S < T and
+S > T under a window, B = 3, and every head width.
 """
 
 import numpy as np
@@ -18,6 +24,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention, ref
+from repro_torch.kernels.flash_attention import HEAD_DIMS
+from torch_flash_tiling import BQ, WG_ROWS, band, grid, padded_dim, smem_bytes
 
 
 @pytest.fixture
@@ -59,10 +67,21 @@ CASES = [  # B, S, T, H, Kv, d, causal, window
     (1, 200, 333, 4, 2, 128, True, 100),  # S < T under a window, d = 128
 ]
 
+TILE_CASES = [  # B, S, T, H, Kv, d, causal, window
+    *[(1, n, n, 4, 2, 64, True, None) for n in (63, 64, 65, 127, 128, 129, 193)],
+    *[(1, n, n, 4, 2, 80, True, 64) for n in (65, 129, 193)],
+    (1, 65, 193, 4, 2, 80, True, 100),  # S < T under a window
+    (1, 193, 129, 4, 2, 80, True, 50),  # S > T under a window: the first 64 rows keep no key
+    (1, 129, 63, 4, 2, 32, False, 40),  # S > T, a window without causal
+    (1, 63, 129, 4, 4, 128, False, None),  # non-causal, S < T
+    (3, 127, 129, 8, 2, 64, True, 64),  # B = 3
+    *[(2, 129, 193, 4, 2, d, True, 100) for d in HEAD_DIMS],  # every head width
+]
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,T,H,Kv,d,causal,window", CASES)
+@pytest.mark.parametrize("B,S,T,H,Kv,d,causal,window", CASES + TILE_CASES)
 def test_kernel_matches_plain_on_card(cuda, B, S, T, H, Kv, d, causal, window, dtype):
     q, k, v = qkv(B, S, T, H, Kv, d, dtype, cuda)
     before = flash_attention.launches
@@ -85,6 +104,38 @@ def test_rows_with_no_key_are_the_mean_of_v(cuda):
     for row in (0, 17, 39):
         torch.testing.assert_close(got[:, row], mean_v, rtol=2e-5, atol=2e-5)
     assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,T,window", [(80, 40, None), (193, 129, 50), (129, 129, 0)])
+def test_bf16_rows_with_no_key_are_the_mean_of_v(cuda, S, T, window):
+    """The tensor-core kernel's empty rows: S > T under causal (the first
+    S - T rows), and causal with a window of 0 (every row)."""
+    q, k, v = qkv(1, S, T, 4, 2, 80, torch.bfloat16, cuda, seed=4)
+    got = flash_attention.flash_attention(q, k, v, causal=True, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    mean_v = v.float().mean(dim=1).repeat_interleave(2, dim=1)  # [B, H, d]
+    for row in {0, S - T - 1 if S > T else S - 1}:
+        torch.testing.assert_close(got[:, row].float(), mean_v, rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_kernel_tiling_is_the_python_mirror(cuda, d):
+    """The CUDA source's padded width, shared memory and key bands equal
+    the Python mirror of them that the CPU tests check."""
+    for S, T, causal, window in [(193, 193, True, None), (65, 300, True, 100), (300, 129, True, 50),
+                                 (129, 63, False, 40), (256, 256, True, 0), (1, 1, False, None)]:
+        for qt in range(grid(1, S, 1)[0]):
+            plan = flash_attention.kernel_plan(d, S, T, causal, window, qt)
+            assert plan["dp"] == padded_dim(d) and plan["smem"] == smem_bytes(d)
+            q0 = qt * BQ
+            assert plan["block"] == band(q0, min(q0 + BQ, S), S, T, causal, window)
+            for w, got in enumerate(plan["warpgroups"]):
+                w0 = q0 + w * WG_ROWS
+                want = (0, 0, 0, 0) if w0 >= S else band(w0, min(w0 + WG_ROWS, S), S, T, causal, window)
+                assert got == want, (S, T, causal, window, qt, w)
 
 
 @pytest.mark.cuda
@@ -111,6 +162,10 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         flash_attention.flash_attention(q, k, v.cpu())
     with pytest.raises(ValueError, match=r"\[B,S,H,d\]"):
         flash_attention.flash_attention(q[0], k, v)
+    qb, kb, vb = qkv(1, 32, 32, 4, 2, 16, torch.bfloat16, cuda)
+    shifted = torch.zeros(qb.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:].view(qb.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):  # contiguous, 2 bytes in
+        flash_attention.flash_attention(shifted, kb, vb)
 
 
 @pytest.mark.cuda
