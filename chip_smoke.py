@@ -1,22 +1,29 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (``src/repro_torch``).
 
-    python3 chip_smoke.py        # from the root of a checkout, one CUDA card
+    python3 chip_smoke.py                  # from the root of a checkout, one CUDA card
+    python3 chip_smoke.py --compare [SRC]  # this slice's readings, with the package under SRC
 
 Phases, each fatal on failure:
   1. build every CUDA source under src/repro_torch/csrc/ (one nvcc each,
      all started together) and print the build time and the compiler's
      register and spill report;
-  2. Mamba2-1.3B: hold the SSD scan kernel against its plain PyTorch
-     version at H=64, P=64, G=1, N=128 (one and four chunks, a ragged
-     100-step chunk, a non-zero state0; fp32 within 1e-4, bf16 within
-     2e-2) and time both; hold a two-layer full-width model's prefill +
-     decode on the card (kernel path) against the CPU (plain path) in fp32;
-     serve the full-width model (48 layers, bf16, random weights from a
-     seed) under a default-mode THAPI trace: 4 slots, prompts of 100, 256,
-     512 and 1024 tokens, 16 new tokens each; tally the trace with the
-     port's own tally and check that every prefill went through the kernel;
-     then the tracing-overhead turns;
+  2. Mamba2-1.3B: count the HGMMA instructions of the bf16 SSD passes
+     (each must hold some, where the toolkit has cuobjdump); hold the SSD
+     scan kernel (bf16: three tensor-core passes; fp32: CUDA cores) against
+     its plain PyTorch version at H=64, P=64, N=128 (one, four and sixteen
+     chunks, a ragged 100-step chunk, a non-zero state0, three batch rows
+     with two groups, and a steep decay, dt in (0.5, 2), at 512 and at a
+     ragged 100; fp32 within 1e-4, bf16 within 2e-2) and time both, up to
+     S=4096; hold a two-layer full-width model's prefill + decode on the
+     card (kernel path) against the CPU (plain path) in fp32; serve the
+     full-width model (48 layers, bf16, random weights from a seed) under a
+     default-mode THAPI trace: 4 slots, prompts of 100, 256, 512 and 1024
+     tokens, 16 new tokens each; tally the trace with the port's own tally
+     and check that every prefill went through the kernel; time warm
+     prefills (and a 4096-token one) and a decode step, and profile the
+     decode step (the copy kernels' share) and the 1024- and 4096-token
+     prefills (the SSD passes' share); then the tracing-overhead turns;
   3. RecurrentGemma-2B: hold the RG-LRU scan kernel against its plain
      version at C=2560 for (B, S) in (1,1), (4,1), (1,100), (1,1024),
      (1,3000), with h0 absent, fp32 and bf16, and at S=1024 and 3000 with
@@ -28,8 +35,8 @@ Phases, each fatal on failure:
      (longer than the window, so the prefill ring is rolled) and 512
      tokens; check that every prefill and every decode step went through
      the RG-LRU kernel in each of the 18 recurrent blocks; profile a warm
-     decode step and prefill.  Each serving run resets the launch counts
-     just before it and reads them just after;
+     decode step (the copy kernels' share) and prefill.  Each serving run
+     resets the launch counts just before it and reads them just after;
   4. h2o-danube-1.8b: count the HGMMA (wgmma) instructions in the SASS of
      each bf16 flash-attention instance (cuobjdump, where the toolkit has
      it; every bf16 instance must hold some); hold the flash-attention
@@ -42,16 +49,18 @@ Phases, each fatal on failure:
      shapes and 2e-3 + 2e-2·max|o_ref| of the row at full width) and time
      it in bf16 beside its
      plain version and the library's scaled_dot_product_attention (the
-     yardstick only; the port never calls it); hold a two-layer full-width
-     model on the card against the CPU in fp32 (a 600-token prompt,
-     cache_len 512: a rolled ring); serve the full-width model (24 layers,
+     yardstick only; the port never calls it); measure RoPE's frequencies,
+     cos and sin on the card against the CPU and float64 up to position
+     5000; hold a two-layer full-width model on the card against the CPU in
+     fp32 (a 600-token prompt with cache_len 512, and a 5000-token one with
+     cache_len 4096: rolled rings); serve the full-width model (24 layers,
      bf16) with cache_len 4096 (the ring is the window) and prompts of 100,
      512, 1024, 4096 (the ring is full, so decode wraps at once), 5000 (the
      prefill ring is rolled and the window masks inside the kernel) and 512
      tokens; check that every prefill ran the kernel in each of the 24
-     layers and no decode step did; profile a warm decode step and the
-     4096- and 5000-token prefills, with the flash kernel's share of each
-     prefill's device time;
+     layers and no decode step did; profile a warm decode step (the copy
+     kernels' share) and the 4096- and 5000-token prefills, with the flash
+     kernel's share of each prefill's device time;
   5. the full-mode polling fence, and the command-line launcher at full
      width under a trace, for the three models.
 traced_session and warm_step_times take the serving cache_len (2048 unless
@@ -66,6 +75,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -84,10 +94,18 @@ FP32_FLOPS_PER_S = 67e12
 DEVICE = "cuda"
 SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 RGLRU_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SSD_TIME_S = (100, 256, 512, 1024, 4096)
+#: the CUDA kernels of one bf16 SSD call, each named in the device time
+SSD_BF16_PASSES = ("ssd_scan_chunk_kernel", "ssd_scan_state_kernel", "ssd_scan_output_kernel")
 PROMPT_LENS = (100, 256, 512, 1024, 100, 512)
+#: a Mamba2 prompt long enough for the card, not the host, to bound its
+#: prefill: timed warm and profiled, outside the traced session
+MAMBA2_LONG_PROMPT = (4096,)
 RG_PROMPT_LENS = (100, 512, 1024, 2040, 3000, 512)
 DANUBE_PROMPT_LENS = (100, 512, 1024, 4096, 5000, 512)
 DANUBE_CACHE_LEN = 4096
+#: (prompt tokens, cache_len) of the two-layer danube card-against-CPU runs
+DANUBE_CPU_CASES = ((600, 512), (5000, 4096))
 NEW_TOKENS = 16
 #: fp32 operations per element of the RG-LRU (4 exp, 2 divisions, a sqrt
 #: and ~13 adds, multiplies, maxima and FMAs), for its bound
@@ -179,8 +197,10 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def device_kernels(fn, reps: int = 20) -> dict:
-    """Device ms per call of each device operation ``fn`` runs, by name, from
-    a torch.profiler trace of ``reps`` warm calls."""
+    """(device ms per launch, launches recorded) of each device operation
+    ``fn`` runs, by name, from a torch.profiler trace of ``reps`` warm
+    calls.  A session now and then misses a launch that ran (one of twenty,
+    most often), so the time is the mean over the launches it recorded."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -194,50 +214,71 @@ def device_kernels(fn, reps: int = 20) -> dict:
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / reps / 1e3
-    return by_name
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return {name: (ms / n, n) for name, (ms, n) in by_name.items()}
 
 
-def kernel_device_ms(fn, kernel: str, reps: int = 20, tries: int = 3):
-    """Device time per call of the CUDA kernels whose name holds ``kernel``:
-    the kernel's own run, without the host time of its wrapper that CUDA
+def kernel_device_ms(fn, kernels: tuple, reps: int = 20, tries: int = 3) -> dict:
+    """Device time per call of each CUDA kernel in ``kernels`` (a part of
+    the profiler's name; each launched once per call of ``fn``), by entry:
+    the kernels' own run, without the host time of their wrapper that CUDA
     events around one call include when the host is slower than the card.
-    A profiler session now and then misses a kernel that ran, so a session
-    without it is taken again (and said so), up to ``tries`` sessions;
-    raises if none of them records such a kernel."""
+    A session that recorded no launch of one of them is taken again (and
+    said so), up to ``tries`` sessions; raises if none recorded them all."""
     for attempt in range(1, tries + 1):
         seen = device_kernels(fn, reps)
-        ms = [t for name, t in seen.items() if kernel in name]
-        if ms:
-            if attempt > 1:
-                print(f"[profiler] {kernel}: recorded in session {attempt} of {tries}")
-            return sum(ms)
-        print(f"[profiler] {kernel}: session {attempt} of {tries} recorded no such kernel "
-              f"({len(seen)} other device operations)")
-    raise AssertionError(f"the profiler recorded no device kernel named like {kernel!r} in {tries} sessions")
+        got = {k: [(ms, n) for name, (ms, n) in seen.items() if k in name] for k in kernels}
+        missing = [k for k, v in got.items() if len(v) != 1]
+        if not missing:
+            short = {k: v[0][1] for k, v in got.items() if v[0][1] != reps}
+            if short or attempt > 1:
+                print(f"[profiler] {', '.join(kernels)}: session {attempt} of {tries} recorded them all"
+                      + (f", launches {short} of {reps}" if short else ""))
+            return {k: v[0][0] for k, v in got.items()}
+        print(f"[profiler] session {attempt} of {tries}: {({k: len(got[k]) for k in missing})} kernels named "
+              f"like these, want one each ({len(seen)} device operations)")
+    raise AssertionError(f"the profiler recorded no single kernel named like each of {missing} in {tries} sessions")
 
 
-def profile_step(fn, label: str, tag: str, kernel: str = "") -> None:
+def profile_step(fn, label: str, tag: str, kernels: tuple = (), launches: int = 0, tries: int = 3) -> None:
     """One warm call of ``fn`` under torch.profiler: wall time to completion,
     the card's busy time (the kernels' and copies' device intervals; one
     stream, so they do not overlap), its idle share, the kernels that take
     the most device time, and the share of the busy time taken by the
-    kernels whose name holds ``kernel`` (when given)."""
+    device operations whose name holds an entry of ``kernels`` in any case
+    ("copy" gathers the copy kernels and memcpys).  A session that records
+    no device operation, none named like one of ``kernels``, or (when
+    ``launches`` is given) other than ``launches`` of them, is taken again,
+    up to ``tries`` sessions; raises if none recorded each of ``kernels``,
+    and says so if none recorded all ``launches``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    want = [k.lower() for k in kernels]
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not dev:
-        print(f"[{tag}] profile {label}: wall {wall:.2f} ms; the profiler recorded no device time (not measured)")
-        return
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        missing = [k for k in want if not any(k in e.name.lower() for e in dev)]
+        mine = [e for e in dev if any(k in e.name.lower() for k in want)]
+        if dev and not missing and (not launches or len(mine) == launches):
+            break
+        print(f"[{tag}] profile {label}: session {attempt} of {tries}: {len(dev)} device ops, {len(mine)} "
+              f"launches named like {'/'.join(kernels)}" + (f" of {launches}" if launches else "")
+              + (f", none like {missing}" if missing else ""))
+    else:
+        if missing:
+            raise AssertionError(f"profile {label}: no session of {tries} recorded each of {kernels}")
+        if not dev:
+            print(f"[{tag}] profile {label}: wall {wall:.2f} ms; the profiler recorded no device time (not measured)")
+            return
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     by_name: dict = {}
     for e in dev:
@@ -247,12 +288,10 @@ def profile_step(fn, label: str, tag: str, kernel: str = "") -> None:
           f"({len(dev)} device ops), idle share {1 - busy / wall:.3f}")
     for name, ms in top:
         print(f"[{tag}]   {ms:8.3f} ms  {name[:110]}")
-    if kernel:
-        mine = [(n, ms) for n, ms in by_name.items() if kernel in n]
-        ms = sum(t for _, t in mine)
-        calls = sum(1 for e in dev if kernel in e.name)
-        print(f"[{tag}] profile {label}: {kernel} {ms:.3f} ms of the {busy:.2f} ms busy "
-              f"({ms / busy:.3f}), {calls} launches")
+    if want:
+        ms = sum(e.time_range.elapsed_us() for e in mine) / 1e3
+        print(f"[{tag}] profile {label}: {'/'.join(kernels)} {ms:.3f} ms of the {busy:.2f} ms busy "
+              f"({ms / busy:.3f}), {len(mine)} launches" + (f" of the {launches} that ran" if launches else ""))
 
 
 # ---------------------------------------------------------------------------
@@ -282,19 +321,21 @@ def build_kernels() -> None:
 # ---------------------------------------------------------------------------
 
 
-def ssd_inputs(S: int, dtype, with_state0: bool, seed: int):
+def ssd_inputs(S: int, dtype, with_state0: bool, seed: int, B: int = 1, G: int = 1, dt_range=(1e-3, 0.1)):
+    """Mamba2-1.3B's SSD widths (H=64, P=64, N=128); ``dt_range`` (0.5, 2)
+    is the steep decay, where cum falls below -88 within a few dozen rows."""
     import torch
 
-    H, P, G, N = 64, 64, 1, 128
+    H, P, N = 64, 64, 128
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     dev = DEVICE
-    x = torch.randn(1, S, H, P, generator=g, device=dev).to(dtype)
-    dt = torch.empty(1, S, H, device=dev).uniform_(1e-3, 0.1, generator=g)
+    x = torch.randn(B, S, H, P, generator=g, device=dev).to(dtype)
+    dt = torch.empty(B, S, H, device=dev).uniform_(*dt_range, generator=g)
     A_log = torch.empty(H, device=dev).uniform_(0.0, 2.0, generator=g)
-    Bm = torch.randn(1, S, G, N, generator=g, device=dev).to(dtype)
-    Cm = torch.randn(1, S, G, N, generator=g, device=dev).to(dtype)
+    Bm = torch.randn(B, S, G, N, generator=g, device=dev).to(dtype)
+    Cm = torch.randn(B, S, G, N, generator=g, device=dev).to(dtype)
     D = torch.randn(H, generator=g, device=dev)
-    state0 = torch.randn(1, H, P, N, generator=g, device=dev) if with_state0 else None
+    state0 = torch.randn(B, H, P, N, generator=g, device=dev) if with_state0 else None
     return x, dt, A_log, Bm, Cm, D, state0
 
 
@@ -323,22 +364,59 @@ def ssd_bound(S: int, chunk: int, x, Bm, state0) -> tuple:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def ssd_time_rows(sizes, passes: tuple = SSD_BF16_PASSES) -> list:
+    """Times at the serving path's shapes, one layer's prefill, bf16, batch
+    1: (S, ms, device ms, plain ms, bound ms, bound by) for each S.  The
+    device time sums the kernels in ``passes``, each of which must be
+    recorded: every kernel the wrapper launches."""
+    import torch
+
+    from repro_torch.kernels import ref, ssd_scan
+
+    rows = []
+    for S in sizes:
+        chunk = min(256, S)
+        x, dt, A_log, Bm, Cm, D, _ = ssd_inputs(S, torch.bfloat16, False, seed=7)
+        call = lambda: ssd_scan.ssd_scan(x, dt, A_log, Bm, Cm, D, chunk=chunk)  # noqa: E731
+        ms = cuda_ms(call)
+        by_pass = kernel_device_ms(call, passes)
+        dev = sum(by_pass.values())
+        plain = cuda_ms(lambda: ref.ssd_ref(x, dt, A_log, Bm, Cm, D, chunk=chunk))
+        bound, by = ssd_bound(S, chunk, x, Bm, None)
+        rows.append((S, ms, dev, plain, bound, by))
+        print(
+            f"[ssd-time] bf16 B=1 S={S} chunk={chunk}: kernel {ms:.4f} ms per call (CUDA events), "
+            f"{dev:.4f} ms on the device (profiler; "
+            + ", ".join(f"{n} {t:.4f}" for n, t in by_pass.items())
+            + f"), plain {plain:.4f} ms, bound {bound:.5f} ms ({by})"
+        )
+    return rows
+
+
 def check_ssd() -> dict:
     import torch
 
     from repro_torch.kernels import ref, ssd_scan
 
-    cases = [  # (S, chunk, state0)
-        (256, 256, False),
-        (1024, 256, False),
-        (100, 100, False),
-        (1024, 256, True),
+    hgmma = sass_hgmma("ssd_scan", r"(ssd_scan_(?:chunk|output)_kernel)")
+    if hgmma and not (len(hgmma) == 2 and all(hgmma.values())):
+        raise AssertionError(f"a bf16 SSD pass holds no HGMMA instruction: {hgmma}")
+    steep = (0.5, 2.0)
+    cases = [  # (B, S, G, chunk, state0, dt range)
+        (1, 256, 1, 256, False, None),
+        (1, 1024, 1, 256, False, None),
+        (1, 100, 1, 100, False, None),
+        (1, 1024, 1, 256, True, None),
+        (1, 4096, 1, 256, True, None),
+        (3, 512, 2, 256, True, None),
+        (1, 512, 1, 256, True, steep),
+        (1, 100, 1, 100, True, steep),
     ]
     max_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         tol = SSD_TOL[str(dtype).split(".")[1]]
-        for i, (S, chunk, st0) in enumerate(cases):
-            x, dt, A_log, Bm, Cm, D, state0 = ssd_inputs(S, dtype, st0, seed=i)
+        for i, (B, S, G, chunk, st0, dts) in enumerate(cases):
+            x, dt, A_log, Bm, Cm, D, state0 = ssd_inputs(S, dtype, st0, i, B, G, dts or (1e-3, 0.1))
             y, st = ssd_scan.ssd_scan(x, dt, A_log, Bm, Cm, D, chunk=chunk, state0=state0)
             torch.cuda.synchronize()
             y_ref, st_ref = ref.ssd_ref(x, dt, A_log, Bm, Cm, D, chunk=chunk, state0=state0)
@@ -349,32 +427,17 @@ def check_ssd() -> dict:
                 st, st_ref, rtol=tol, atol=tol
             )
             print(
-                f"[ssd] {dtype} S={S} chunk={chunk} state0={st0}: max|dy|={err_y:.3g} "
-                f"max|dstate|={err_s:.3g} tol={tol} {'ok' if ok else 'MISMATCH'}"
+                f"[ssd] {dtype} B={B} S={S} G={G} chunk={chunk} state0={st0} dt={dts or 'mamba2'}: "
+                f"max|dy|={err_y:.3g} max|dstate|={err_s:.3g} tol={tol} {'ok' if ok else 'MISMATCH'}"
             )
             if not ok:
                 raise AssertionError(f"ssd_scan disagrees with ssd_ref at S={S} {dtype}")
             max_err = max(max_err, err_y, err_s)
 
-    # times at the serving path's shapes: one layer's prefill, bf16, batch 1
-    rows = []
-    for S in (100, 256, 512, 1024):
-        chunk = min(256, S)
-        x, dt, A_log, Bm, Cm, D, _ = ssd_inputs(S, torch.bfloat16, False, seed=7)
-        call = lambda: ssd_scan.ssd_scan(x, dt, A_log, Bm, Cm, D, chunk=chunk)  # noqa: E731
-        ms = cuda_ms(call)
-        dev = kernel_device_ms(call, "ssd_scan_kernel")
-        plain = cuda_ms(lambda: ref.ssd_ref(x, dt, A_log, Bm, Cm, D, chunk=chunk))
-        bound, by = ssd_bound(S, chunk, x, Bm, None)
-        rows.append((S, ms, dev, plain, bound, by))
-        print(
-            f"[ssd-time] bf16 B=1 S={S} chunk={chunk}: kernel {ms:.4f} ms per call (CUDA events), "
-            f"{dev:.4f} ms on the device (profiler), "
-            f"plain {plain:.4f} ms, bound {bound:.5f} ms ({by})"
-        )
+    rows = ssd_time_rows(SSD_TIME_S)
     # ms and plain_ms: medians of CUDA events around one call; device_ms:
     # the kernel's own time in a profiler trace
-    S, ms, dev, plain, bound, by = rows[-1]
+    S, ms, dev, plain, bound, by = rows[SSD_TIME_S.index(1024)]
     return {
         "name": "ssd_scan",
         "route": "cuda",
@@ -388,6 +451,7 @@ def check_ssd() -> dict:
         "bound_ms": bound,
         "bound_by": by,
         "library_ms": None,  # no single PyTorch call computes the SSD scan
+        "hgmma": sum(hgmma.values()) if hgmma else "not measured",
     }
 
 
@@ -463,7 +527,7 @@ def check_rglru() -> dict:
         x, r, i, lam, h0 = rglru_inputs(B, S, torch.bfloat16, torch.float32 if S == 1 else None, 99)
         call = lambda: rglru_scan.rglru_scan(x, r, i, lam, h0=h0)  # noqa: E731
         ms = cuda_ms(call)
-        dev = kernel_device_ms(call, "rglru_scan_kernel")
+        dev = kernel_device_ms(call, ("rglru_scan_kernel",))["rglru_scan_kernel"]
         plain = cuda_ms(lambda: ref.rglru_ref(x, r, i, lam, h0=h0))
         bound, by = rglru_bound(x, h0)
         rows[(B, S)] = (ms, dev, plain, bound, by)
@@ -585,35 +649,40 @@ def sdpa_call(q, k, v, window):
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, enable_gqa=True)
 
 
-def hgmma_counts() -> dict:
-    """HGMMA (the SASS of wgmma) instructions in each bf16 flash-attention
-    instance of the built library, by head width, from ``cuobjdump -sass``;
-    empty when the toolkit has no cuobjdump (printed as not measured)."""
-    import re
-
+def sass_hgmma(lib: str, pattern: str) -> dict:
+    """HGMMA (the SASS of wgmma) instructions in each function of the built
+    ``lib<lib>.so`` whose mangled name matches ``pattern`` (its first group
+    names the function), from ``cuobjdump -sass``; empty when the toolkit has
+    no cuobjdump (printed as not measured)."""
     from repro_torch.kernels import _build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
-        print("[sass] flash_attention: no cuobjdump in the toolkit; HGMMA count not measured")
+        print(f"[sass] {lib}: no cuobjdump in the toolkit; HGMMA count not measured")
         return {}
-    lib = os.path.join(_build.BUILD_DIR, "libflash_attention.so")
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=300, check=True).stdout
+    path = os.path.join(_build.BUILD_DIR, f"lib{lib}.so")
+    sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True, timeout=300, check=True).stdout
     counts: dict = {}
     fn = None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"flash_attention_wgmma_kernelILi(\d+)E", line)
-            fn = int(m.group(1)) if m else None
+            m = re.search(pattern, line)
+            fn = m.group(1) if m else None
             if fn is not None:
                 counts[fn] = 0
         elif fn is not None and "HGMMA" in line:
             counts[fn] += 1
-    print(f"[sass] flash_attention_wgmma_kernel HGMMA instructions by head width: {counts} "
-          f"(total {sum(counts.values())})")
+    print(f"[sass] {lib}: HGMMA instructions by function: {counts} (total {sum(counts.values())})")
+    return counts
+
+
+def hgmma_counts() -> dict:
+    """HGMMA instructions in each bf16 flash-attention instance, by head
+    width; every instance must hold some."""
     from repro_torch.kernels.flash_attention import HEAD_DIMS
 
-    if sorted(counts) != sorted(HEAD_DIMS) or not all(counts.values()):
+    counts = {int(d): n for d, n in sass_hgmma("flash_attention", r"flash_attention_wgmma_kernelILi(\d+)E").items()}
+    if counts and (sorted(counts) != sorted(HEAD_DIMS) or not all(counts.values())):
         raise AssertionError(f"a bf16 flash-attention instance holds no HGMMA instruction: {counts}")
     return counts
 
@@ -655,7 +724,7 @@ def check_flash() -> dict:
         q, k, v = flash_inputs(1, S, S, 32, 8, 80, torch.bfloat16, seed=7)
         call = lambda: flash_attention.flash_attention(q, k, v, causal=True, window=4096)  # noqa: E731
         ms = cuda_ms(call)
-        dev = kernel_device_ms(call, "flash_attention_wgmma_kernel")
+        dev = kernel_device_ms(call, ("flash_attention_wgmma_kernel",))["flash_attention_wgmma_kernel"]
         plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True, window=4096))
         lib = sdpa_call(q, k, v, 4096)
         lib_err = (lib().transpose(1, 2).float() - call().float()).abs().max().item()
@@ -670,9 +739,9 @@ def check_flash() -> dict:
             f"library scaled_dot_product_attention {library:.4f} ms (max|d| vs kernel {lib_err:.3g}), "
             f"bound {bound:.5f} ms ({by}; {flash_pairs(S, S, True, 4096)} kept pairs per head)"
         )
-        ran = sorted(device_kernels(lib, reps=5).items(), key=lambda kv: -kv[1])[:2]
+        ran = sorted(device_kernels(lib, reps=5).items(), key=lambda kv: -kv[1][0])[:2]
         print(f"[flash-time] library S={S}, the device kernels that ran (ms per call, profiler): "
-              + ("; ".join(f"{t:.4f} {name[:100]}" for name, t in ran) or "none recorded (not measured)"))
+              + ("; ".join(f"{t:.4f} {name[:100]}" for name, (t, _) in ran) or "none recorded (not measured)"))
     ms, dev, plain, library, bound, by = rows[FLASH_TIME_S[1]]
     return {
         "name": "flash_attention",
@@ -765,10 +834,63 @@ def check_hybrid_against_cpu() -> None:
           f"2 decode steps and {len(names) - 3} cache leaves, card vs cpu max|d|={worst:.3g} (tol 1e-3) ok")
 
 
-def check_dense_against_cpu() -> None:
-    """Two full-width h2o-danube-1.8b layers, fp32: a 600-token prompt with
-    cache_len 512 (eff 512: the prefill ring is rolled) and two decode steps,
-    card (kernel) against CPU (plain) over logits and every cache leaf."""
+def check_rope_against_cpu() -> None:
+    """Where the card and the CPU parted in RoPE'd keys, at positions
+    0..5000 with h2o-danube-1.8b's theta and head width 80: the frequency
+    formula ``exp(-log(theta) k / half)`` evaluated on each device (its
+    argument and its exp apart), and ``layers.rope`` of a unit input (x1 =
+    1, x2 = 0, so the output is [cos, sin] of its angles) on the card and on
+    the CPU, each against float64 cos/sin of its own fp32 angles and
+    against the float64 formula.  ``layers.rope`` takes its frequencies from
+    the CPU on every device.  A measurement: it prints, and fails only on
+    non-finite values."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import rope, rope_freqs
+
+    cfg = get_config("h2o-danube-1.8b")
+    theta, hd = cfg.rope_theta, cfg.head_dim_
+    half, S = hd // 2, 5001
+    eps = torch.finfo(torch.float32).eps
+
+    def ulps(a, b):
+        rel = (a - b).abs() / (eps * b.abs().clamp_min(torch.finfo(torch.float32).tiny))
+        return f"{int((a != b).sum())} of {half} differ, max {rel.max().item():.2f} ulp"
+
+    arg = {d: (-math.log(theta) * torch.arange(0, half, dtype=torch.float32, device=d) / half) for d in (DEVICE, "cpu")}
+    freqs = {d: torch.exp(a).cpu() for d, a in arg.items()}
+    exp_of_cpu_arg = torch.exp(arg["cpu"].to(DEVICE)).cpu()
+    print(f"[rope] danube theta {theta:g}, hd {hd}: the frequency formula on the card vs the cpu: "
+          f"arguments {ulps(arg[DEVICE].cpu(), arg['cpu'])}; exp of the same arguments "
+          f"{ulps(exp_of_cpu_arg, freqs['cpu'])}; frequencies {ulps(freqs[DEVICE], freqs['cpu'])}")
+    pos = torch.arange(S)
+    x = torch.zeros(1, S, 1, hd)
+    x[..., :half] = 1.0
+    out, own = {}, {}
+    for dev in (DEVICE, "cpu"):
+        out[dev] = rope(x.to(dev), pos.to(dev), theta)[0, :, 0].double().cpu()
+        if not torch.isfinite(out[dev]).all():
+            raise AssertionError(f"non-finite rope on {dev}")
+        ang = (pos.float()[:, None] * rope_freqs(theta, half, torch.device("cpu"))).double()
+        own[dev] = (out[dev] - torch.cat([torch.cos(ang), torch.sin(ang)], -1)).abs().max().item()
+    exact_f = torch.exp(-math.log(theta) * torch.arange(0, half, dtype=torch.float64) / half)
+    exact = torch.cat([torch.cos(pos.double()[:, None] * exact_f), torch.sin(pos.double()[:, None] * exact_f)], -1)
+    d = (out[DEVICE] - out["cpu"]).abs()
+    print(f"[rope] layers.rope cos/sin card vs cpu, positions 0..{S - 1}: max|d| {d.max().item():.3g} "
+          f"({d[:601].max().item():.3g} up to 600); each against float64 cos/sin of its fp32 angles: "
+          f"card {own[DEVICE]:.3g}, cpu {own['cpu']:.3g}; against the float64 formula: "
+          f"card {(out[DEVICE] - exact).abs().max().item():.3g}, cpu {(out['cpu'] - exact).abs().max().item():.3g}")
+
+
+def check_dense_against_cpu(S: int, cache_len: int) -> None:
+    """Two full-width h2o-danube-1.8b layers, fp32: an S-token prompt with
+    ``cache_len`` rows (600 and 512: the prefill ring is rolled; 5000 and
+    4096: danube's window masks inside the prompt and the ring is rolled)
+    and two decode steps, card (kernel) against CPU (plain) over logits and
+    every cache leaf."""
     import numpy as np
     import torch
 
@@ -780,16 +902,16 @@ def check_dense_against_cpu() -> None:
     model = Model(cfg)
     params = model.init(torch.Generator(device=DEVICE).manual_seed(3))
     params_cpu = _to(params, "cpu")
-    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, size=(1, 600))
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, size=(1, S))
     # the kernel takes contiguous tensors: the projections' einsum gives them
     x = params["embed"]["tok"][torch.as_tensor(toks, device=DEVICE)]
-    q, k, v = qkv(cfg, layer_slice(params["blocks"], 0)["attn"], x, torch.arange(600, device=DEVICE)[None])
+    q, k, v = qkv(cfg, layer_slice(params["blocks"], 0)["attn"], x, torch.arange(S, device=DEVICE)[None])
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise AssertionError(f"non-contiguous projections: strides {q.stride()}, {k.stride()}, {v.stride()}")
     print(f"[model-dn] q, k, v from the projections are contiguous (v strides {v.stride()})")
     out = {}
     for dev, p in ((DEVICE, params), ("cpu", params_cpu)):
-        logits, cache = model.prefill(p, {"tokens": torch.as_tensor(toks, device=dev)}, 512)
+        logits, cache = model.prefill(p, {"tokens": torch.as_tensor(toks, device=dev)}, cache_len)
         steps = [logits]
         tok = torch.argmax(logits[:, 0, : cfg.vocab_size], -1)
         for _ in range(2):
@@ -804,8 +926,8 @@ def check_dense_against_cpu() -> None:
             raise AssertionError(f"non-finite {name} on the card")
         errs.append(f"{name} {(a - b).abs().max().item():.3g} (|x| up to {b.abs().max().item():.3g})")
         if not torch.allclose(a, b, rtol=1e-3, atol=1e-3):
-            raise AssertionError(f"card and CPU disagree on {name}: max|d|={(a - b).abs().max().item():.3g}")
-    print(f"[model-dn] 2-layer full-width fp32, 600-token prompt, cache_len 512 (rolled ring), card vs cpu "
+            raise AssertionError(f"card and CPU disagree on {name} at S={S}: max|d|={(a - b).abs().max().item():.3g}")
+    print(f"[model-dn] 2-layer full-width fp32, {S}-token prompt, cache_len {cache_len} (rolled ring), card vs cpu "
           f"max|d| (tol 1e-3): {'; '.join(errs)} ok")
 
 
@@ -877,7 +999,7 @@ def warm_step_times(model, params, eng, prompt_lens, rng, tag: str, cache_len: i
         toks = torch.as_tensor(rng.integers(0, model.cfg.vocab_size, size=(1, S)), device=DEVICE)
         host, done_ms = host_vs_device(lambda: model.prefill(params, {"tokens": toks}, cache_len))
         print(f"[{tag}] prefill S={S}: {done_ms:.2f} ms to completion, host enqueue {host:.2f} ms (median of 5, warm)")
-    tok = torch.zeros(eng.cfg.batch_slots, dtype=torch.long, device=DEVICE)
+    tok = torch.zeros(eng.cfg.batch_slots, dtype=torch.int32, device=DEVICE)
     host, done_ms = host_vs_device(lambda: model.decode_step(params, eng.cache, {"token": tok}))
     print(f"[{tag}] decode step ({eng.cfg.batch_slots} slots): {done_ms:.2f} ms to completion, "
           f"host enqueue {host:.2f} ms (median of 5, warm)")
@@ -918,7 +1040,11 @@ def serve_full_width() -> dict:
         raise AssertionError("non-finite SSM state")
     if launches["ssd_scan"] != cfg.num_layers * n:
         raise AssertionError(f"ssd_scan launches {launches['ssd_scan']} != {cfg.num_layers} x {n}")
-    warm_step_times(model, params, eng, PROMPT_LENS, rng, "serve")
+    warm_step_times(model, params, eng, PROMPT_LENS + MAMBA2_LONG_PROMPT, rng, "serve")
+    tok = torch.zeros(eng.cfg.batch_slots, dtype=torch.int32, device=DEVICE)
+    profile_step(lambda: model.decode_step(params, eng.cache, {"token": tok}), "decode step (4 slots)", "serve",
+                 kernels=("copy",))
+    mamba2_prefill_profiles(model, params, rng, "serve")
     # what the tracing costs: the same warm session untraced and traced, in
     # turns (off, default, default, off)
     for mode in ("off", "default", "default", "off"):
@@ -944,6 +1070,17 @@ def serve_full_width() -> dict:
     return {"ssd_scan": launches["ssd_scan"]}
 
 
+def mamba2_prefill_profiles(model, params, rng, tag: str, passes: tuple = SSD_BF16_PASSES) -> None:
+    """Warm Mamba2 prefills of 1024 and 4096 tokens under the profiler: busy
+    time, idle share and the share of the SSD kernels in ``passes``."""
+    import torch
+
+    for S in (1024,) + MAMBA2_LONG_PROMPT:
+        toks = torch.as_tensor(rng.integers(0, model.cfg.vocab_size, size=(1, S)), device=DEVICE)
+        profile_step(lambda t=toks: model.prefill(params, {"tokens": t}, 2048), f"prefill S={S}", tag,
+                     kernels=passes, launches=model.cfg.num_layers * len(passes))
+
+
 def serve_recurrentgemma() -> dict:
     """Full-width RecurrentGemma-2B: every prefill and every decode step runs
     the RG-LRU kernel once in each recurrent block."""
@@ -966,8 +1103,9 @@ def serve_recurrentgemma() -> dict:
     print(f"[serve-rg] rglru_scan launches {launches['rglru_scan']} = {n_rec} recurrent blocks x "
           f"({n} prefills + {steps} decode steps); h leaves {sorted({str(h.dtype) for h in hs})}")
     warm_step_times(model, params, eng, RG_PROMPT_LENS, rng, "serve-rg")
-    tok = torch.zeros(eng.cfg.batch_slots, dtype=torch.long, device=DEVICE)
-    profile_step(lambda: model.decode_step(params, eng.cache, {"token": tok}), "decode step (4 slots)", "serve-rg")
+    tok = torch.zeros(eng.cfg.batch_slots, dtype=torch.int32, device=DEVICE)
+    profile_step(lambda: model.decode_step(params, eng.cache, {"token": tok}), "decode step (4 slots)", "serve-rg",
+                 kernels=("copy",))
     toks = torch.as_tensor(rng.integers(0, model.cfg.vocab_size, size=(1, 1024)), device=DEVICE)
     profile_step(lambda: model.prefill(params, {"tokens": toks}, 2048), "prefill S=1024", "serve-rg")
     return {"rglru_scan": launches["rglru_scan"]}
@@ -995,12 +1133,13 @@ def serve_danube() -> dict:
     print(f"[serve-dn] flash_attention launches {launches['flash_attention']} = {L} layers x {n} prefills "
           f"(none in the {steps} decode steps)")
     warm_step_times(model, params, eng, DANUBE_PROMPT_LENS, rng, "serve-dn", cache_len=DANUBE_CACHE_LEN)
-    tok = torch.zeros(eng.cfg.batch_slots, dtype=torch.long, device=DEVICE)
-    profile_step(lambda: model.decode_step(params, eng.cache, {"token": tok}), "decode step (4 slots)", "serve-dn")
+    tok = torch.zeros(eng.cfg.batch_slots, dtype=torch.int32, device=DEVICE)
+    profile_step(lambda: model.decode_step(params, eng.cache, {"token": tok}), "decode step (4 slots)", "serve-dn",
+                 kernels=("copy",))
     for S in (4096, 5000):
         toks = torch.as_tensor(rng.integers(0, model.cfg.vocab_size, size=(1, S)), device=DEVICE)
         profile_step(lambda t=toks: model.prefill(params, {"tokens": t}, DANUBE_CACHE_LEN), f"prefill S={S}",
-                     "serve-dn", kernel="flash_attention_wgmma_kernel")
+                     "serve-dn", kernels=("flash_attention_wgmma_kernel",), launches=L)
     return {"flash_attention": launches["flash_attention"]}
 
 
@@ -1068,7 +1207,58 @@ def serve_launcher() -> None:
         print(f"[launch] repro_torch.launch.serve --arch {arch} --full --trace default: rc 0, launches {launches}")
 
 
-def main() -> int:
+def compare_only(src: str) -> int:
+    """``--compare [SRC]``: the readings this slice moved, with the package
+    under ``SRC``, a directory inside this checkout (default: its own
+    ``src``; a parent tree goes unpacked under the gitignored ``build/``),
+    so that two trees run the same measuring code in one call: the SSD
+    kernel's times at S = 1024 and 4096 (a tree from before the three bf16
+    passes runs one kernel, ``ssd_scan_kernel``),
+    and the bf16 flash-attention kernel's at danube's S = 1024 and 4096
+    (it shares the ``wgmma`` helpers);
+    the full-width Mamba2 prefills of 1024 and 4096 tokens (warm times and
+    profiles); and the full-width h2o-danube-1.8b traced session's peak
+    memory and its decode step's profile with the copy kernels' share."""
+    import numpy as np
+    import torch
+
+    root, src = os.path.realpath(ROOT), os.path.realpath(src)
+    if os.path.commonpath([root, src]) != root:
+        print(f"chip_smoke: --compare takes a tree inside the checkout, not {src}", file=sys.stderr)
+        return 1
+    sys.path.insert(0, src)
+    from repro_torch.kernels import ssd_scan
+
+    print(f"[compare] {ssd_scan.__file__}")
+    passes = SSD_BF16_PASSES if hasattr(ssd_scan, "kernel_plan") else ("ssd_scan_kernel",)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ssd_time_rows((1024, 4096), passes)
+    from repro_torch.kernels import flash_attention
+
+    for S in FLASH_TIME_S[:2]:
+        q, k, v = flash_inputs(1, S, S, 32, 8, 80, torch.bfloat16, seed=7)
+        call = lambda: flash_attention.flash_attention(q, k, v, causal=True, window=4096)  # noqa: E731
+        print(f"[compare] flash_attention bf16 danube S={S}: {cuda_ms(call):.4f} ms per call (CUDA events), "
+              f"{sum(kernel_device_ms(call, ('flash_attention_wgmma_kernel',)).values()):.4f} ms "
+              "on the device (profiler)")
+    model, params = init_full_width("mamba2-1.3b", "compare")
+    rng = np.random.default_rng(0)
+    for S in (1024,) + MAMBA2_LONG_PROMPT:
+        toks = torch.as_tensor(rng.integers(0, model.cfg.vocab_size, size=(1, S)), device=DEVICE)
+        host, done_ms = host_vs_device(lambda t=toks: model.prefill(params, {"tokens": t}, 2048))
+        print(f"[compare] prefill S={S}: {done_ms:.2f} ms to completion, host enqueue {host:.2f} ms "
+              f"(median of 5, warm)")
+    mamba2_prefill_profiles(model, params, rng, "compare", passes)
+    del model, params
+    model, params = init_full_width("h2o-danube-1.8b", "compare")
+    eng, _, _, _ = traced_session(model, params, DANUBE_PROMPT_LENS, rng, "compare", cache_len=DANUBE_CACHE_LEN)
+    tok = torch.zeros(eng.cfg.batch_slots, dtype=torch.int32, device=DEVICE)
+    profile_step(lambda: model.decode_step(params, eng.cache, {"token": tok}), "danube decode step (4 slots)",
+                 "compare", kernels=("copy",))
+    return 0
+
+
+def main(argv=()) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1078,6 +1268,8 @@ def main() -> int:
         print("chip_smoke: run from the root of a checkout (src/repro_torch missing)", file=sys.stderr)
         return 1
     print(card_line())
+    if argv[:1] == ["--compare"]:
+        return compare_only(argv[1] if len(argv) > 1 else os.path.join(ROOT, "src"))
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1092,7 +1284,9 @@ def main() -> int:
     check_hybrid_against_cpu()
     launches.update(serve_recurrentgemma())
     kernels.append(check_flash())
-    check_dense_against_cpu()
+    check_rope_against_cpu()
+    for S, cache_len in DANUBE_CPU_CASES:
+        check_dense_against_cpu(S, cache_len)
     launches.update(serve_danube())
     check_full_mode_fence()
     serve_launcher()
@@ -1106,4 +1300,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

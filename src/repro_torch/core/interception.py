@@ -96,7 +96,9 @@ class TracedStep:
     """Eager step wrapper with THAPI interception (≙ the JAX ``TracedJit``).
 
     Records per call:
-      * ``dispatch`` entry/exit — fn name, #args, argument bytes
+      * ``dispatch`` entry/exit — fn name, #args, argument bytes, donated
+        bytes (the arguments of ``donate_argnums``, which the step writes
+        into in place: the decode step's cache, as the JAX engine donates it)
       * ``compile`` entry/exit on the first call (cache_hit=False) — the
         first eager call is where PyTorch builds its kernels and caches
       * ``launch`` span — begin/end timestamps around execution.  On a CUDA
@@ -115,12 +117,14 @@ class TracedStep:
         *,
         device: torch.device,
         flops: int = 0,
+        donate_argnums: Sequence[int] = (),
     ):
         self._fn = fn
         self.name = name or getattr(fn, "__name__", "step")
         self.device = torch.device(device)
         self.flops = flops
-        self._arg_bytes: Optional[int] = None
+        self.donate_argnums = frozenset(donate_argnums)
+        self._sizes: Optional[tuple] = None  # (argument bytes, donated bytes) of the first call
         self._called_once = False
 
     def __call__(self, *args):
@@ -128,13 +132,15 @@ class TracedStep:
         if tr is None or not tr.selected or tr.fidelity == "off":
             return self._fn(*args)
         t = tp()
-        if self._arg_bytes is None:
-            self._arg_bytes = nbytes_of(args)
+        if self._sizes is None:
+            donated = sum(nbytes_of(a) for i, a in enumerate(args) if i in self.donate_argnums)
+            self._sizes = (nbytes_of(args), donated)
+        arg_bytes, donated = self._sizes
         first = not self._called_once
         if first:
             t.compile_entry(self.name, hash(self.name) & 0xFFFFFFFFFFFF)
             self._called_once = True
-        t.dispatch_entry(self.name, len(args), self._arg_bytes, 0)
+        t.dispatch_entry(self.name, len(args), arg_bytes, donated)
         ts_begin = now()
         out = self._fn(*args)
         if first:

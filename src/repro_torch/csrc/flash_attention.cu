@@ -94,7 +94,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <atomic>
+#include "wgmma.cuh"
 
 namespace {
 
@@ -133,35 +133,19 @@ __host__ __device__ inline Band band(int r0, int r1, int S, int T, int causal, i
   return out;
 }
 
-// Above 48 KB a block's dynamic shared memory must be allowed explicitly.
-// The attribute belongs to the device, so each instance sets it once per
-// device (a bit each for devices 0-63; others set it on every launch).
-// Two threads may both set it the first time: setting it twice is harmless.
-template <int D, bool TC>
-cudaError_t allow_smem(const void* kernel, size_t bytes) {
-  static std::atomic<unsigned long long> done{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-  if (bit & done.load(std::memory_order_acquire)) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
-}
-
 // ---------------------------------------------------------------------------
 // bf16: warpgroup tensor-core products
 // ---------------------------------------------------------------------------
 
 namespace tc {
 
+using namespace hopper;
+
 constexpr int BQ = 128;       // query rows per block
 constexpr int WG_ROWS = 64;   // query rows per warpgroup
 constexpr int BK = 64;        // keys per K/V tile
 constexpr int THREADS = 256;  // two warpgroups
 constexpr int ATOM = 64;      // bf16 columns in one 128-byte swizzled row
-constexpr int ROW = 128;      // bytes in one row of a column block
 constexpr int STAGES = 2;     // K/V tiles in the ring
 
 __host__ __device__ constexpr int padded(int d) { return (d + ATOM - 1) / ATOM * ATOM; }
@@ -172,38 +156,12 @@ __host__ __device__ constexpr size_t smem_bytes(int d) {
   return (size_t)(BQ + 2 * STAGES * BK) * padded(d) * 2 + 1024;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// the byte offset of 16-byte chunk c of row r in a tile of `rows` rows
-__device__ __forceinline__ uint32_t swizzled(int rows, int r, int c) {
-  return (c / 8) * (rows * ROW) + r * ROW + (((c ^ r) & 7) << 4);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// waits until at most N of this thread's copy groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 // 2^x by the special-function unit (relative error ~2^-22; results below
 // 2^-126 flush to 0, far under what a bf16 probability can add to a row)
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-// makes this thread's shared-memory writes visible to the tensor cores
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // rows [row0, row0 + ROWS) of one head of a [*, rows, heads, D] bf16
@@ -221,99 +179,6 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* __r
     const __nv_bfloat16* g = src + batch_off + ((size_t)(in ? row : 0) * heads + head) * D + c * 8;
     cp_async16(dst + swizzled(ROWS, r, c), g, in ? 16 : 0);
   }
-}
-
-// a shared-memory matrix descriptor for the 128-byte swizzle: start address,
-// leading and stride byte offsets (in 16-byte units), layout B128
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving reads or writes of r across the wgmma
-// fence and wait, which it does not know touch r
-__device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
-__device__ __forceinline__ void pin(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
-
-#define F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define F8(i) F4(i), F4(i + 4)
-#define F16(i) F8(i), F8(i + 8)
-#define F32(i) F16(i), F16(i + 16)
-
-// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : F32(0)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[64 x N] += A[64 x 16] B[16 x N], A in registers, B MN-major in shared
-// memory (scale-d is a predicate, set to 1: always accumulate)
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : F32(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : F16(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-template <>
-__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : F8(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-template <>
-__device__ __forceinline__ void wgmma_rs<8>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
-      : F4(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef F32
-#undef F16
-#undef F8
-#undef F4
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x, the low half, is lo
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // The accumulator of a warpgroup's m64nN product: thread (warp w, lane
@@ -520,7 +385,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
                    int H, int Kv, int causal, int has_window, int window, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes(D);
   auto kern = flash_attention_wgmma_kernel<D>;
-  const cudaError_t err = allow_smem<D, true>((const void*)kern, smem);
+  static hopper::SmemOptIn allow_smem;
+  const cudaError_t err = allow_smem((const void*)kern, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
@@ -725,7 +591,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
                    int H, int Kv, int causal, int has_window, int window, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   auto kern = flash_attention_kernel<D>;
-  const cudaError_t err = allow_smem<D, false>((const void*)kern, smem);
+  static hopper::SmemOptIn allow_smem;
+  const cudaError_t err = allow_smem((const void*)kern, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   const float scale = 1.f / sqrtf((float)D);

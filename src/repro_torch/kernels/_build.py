@@ -3,7 +3,8 @@
 Each source compiles alone with ``nvcc`` for ``sm_90a`` into
 ``build/kernels/lib<name>.so`` at the root of the checkout, exposing a plain
 C interface that the wrappers bind with ``ctypes`` (no PyTorch headers, so
-a build takes seconds).  A library newer than its source is reused; a fresh
+a build takes seconds).  A library newer than its source and than every
+header under ``csrc/`` (``*.cuh``, which the sources include) is reused; a fresh
 build goes to a temporary file renamed into place, so processes building
 the same library at once never load a half-written file.
 """
@@ -43,11 +44,17 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
+def _newest_input(src: str) -> float:
+    """The latest modification time of ``src`` and of the headers under ``csrc/``."""
+    headers = [os.path.join(_CSRC, f) for f in os.listdir(_CSRC) if f.endswith(".cuh")]
+    return max(os.path.getmtime(p) for p in (src, *headers))
+
+
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists; returns its path."""
     src = os.path.join(_CSRC, f"{name}.cu")
     out = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
+    if os.path.exists(out) and os.path.getmtime(out) >= _newest_input(src):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"

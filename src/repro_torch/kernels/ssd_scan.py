@@ -3,12 +3,20 @@
 Replaces the TPU kernel ``src/repro/kernels/ssd_scan.py::ssd_pallas`` and
 computes what ``ref.ssd_ref`` computes, ``state0`` included (applied to
 ``y`` and to the final state).  The design and its bound are noted in the
-CUDA source.
+CUDA source: bf16 runs three passes on the warpgroup tensor-core (``wgmma``)
+products, with a workspace this wrapper allocates on the caller's stream;
+fp32 runs the CUDA-core kernel.  One call is one launch of the C entry
+point and counts once in :data:`launches`.
 
 Layouts are the JAX package's: ``x [B,S,H,P]`` and ``Bm``/``Cm``
-``[B,S,G,N]`` in one dtype (fp32 or bf16), ``dt [B,S,H]`` fp32,
+``[B,S,G,N]`` in one dtype (fp32 or bf16; bf16 ones start 16-byte aligned,
+the kernel copies 16 bytes at a time), ``dt [B,S,H]`` fp32,
 ``A_log``/``D`` ``[H]``, ``state0 [B,H,P,N]`` fp32 or None.  Returns
 ``y`` in x's dtype and the final state ``[B,H,P,N]`` fp32.
+
+:func:`kernel_plan` reads the bf16 passes' tiling from the CUDA source
+(``ssd_scan_plan``), for the card tests to hold against the mirror that
+``tests/test_torch_ssd_phases.py`` checks on the CPU.
 """
 
 from __future__ import annotations
@@ -35,13 +43,35 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("ssd_scan")
     fn = lib.ssd_scan_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p
         ]
         fn.restype = ctypes.c_int
+        lib.ssd_scan_workspace_bytes.argtypes = [ctypes.c_int] * 4
+        lib.ssd_scan_workspace_bytes.restype = ctypes.c_size_t
         lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
+        lib.ssd_scan_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        lib.ssd_scan_plan.restype = ctypes.c_int
     return lib
+
+
+def kernel_plan(B: int, S: int, H: int, chunk: int) -> dict:
+    """The CUDA source's own tiling values of the bf16 passes (builds the
+    library): each pass's dynamic shared-memory bytes, grid and threads."""
+    out = (ctypes.c_int * 14)()
+    rc = _lib().ssd_scan_plan(B, S, H, chunk, out)
+    if rc != 0:
+        raise ValueError(f"ssd_scan_plan refused B={B} S={S} H={H} chunk={chunk}")
+    v = list(out)
+    return {
+        "smem": {"chunk": v[0], "state": 0, "output": v[1]},
+        "grids": {
+            "chunk": (tuple(v[2:5]), v[11]),
+            "state": (tuple(v[5:8]), v[12]),
+            "output": (tuple(v[8:11]), v[13]),
+        },
+    }
 
 
 def ssd_scan(
@@ -83,9 +113,20 @@ def ssd_scan(
     _checks.check("ssd_scan", "D", D, (H,), torch.float32, dev)
     if state0 is not None:
         _checks.check("ssd_scan", "state0", state0, (B, H, P, N), torch.float32, dev)
+    lib = _lib()
+    ws = None
+    if x.dtype == torch.bfloat16:
+        for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"ssd_scan: bf16 {name} must start 16-byte aligned")
+        # cum, each chunk's own state, and the state entering each chunk as
+        # bf16 high and low parts, in one allocation the CUDA source lays
+        # out.  Freed when this returns: the caching allocator hands the
+        # memory only to later work on the same stream, which runs after
+        # the passes.
+        ws = torch.empty(lib.ssd_scan_workspace_bytes(B, S, H, chunk), dtype=torch.uint8, device=dev)
     y = torch.empty_like(x)
     final = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
-    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ssd_scan_launch(
@@ -99,6 +140,7 @@ def ssd_scan(
             None if state0 is None else state0.data_ptr(),
             y.data_ptr(),
             final.data_ptr(),
+            None if ws is None else ws.data_ptr(),
             B, S, H, G, P, N, chunk,
             stream,
         )

@@ -224,40 +224,51 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int):
 
 
 def _decode_block(cfg, kind, p, x, lengths, st):
+    """Apply block to one new token, writing its serving state ``st`` in place."""
     positions = lengths[:, None]
     h = apply_norm(cfg, p["ln1"], x)
     if kind == "rec":
         y, (conv_tail, h_new) = rec_mix(cfg, p["rec"], h, state=(st["conv"], st["h"]))
         x = x + y
-        st = {"conv": conv_tail, "h": h_new}
+        st["conv"].copy_(conv_tail)
+        st["h"].copy_(h_new)
     else:
         q, k, v = qkv(cfg, p["attn"], h, positions)
-        ck, cv = cache_update(st["k"], st["v"], k, v, lengths, cfg.rglru.local_window)
-        kv_valid = torch.clamp(lengths + 1, max=ck.shape[1])
-        ctx = attend(q, ck, cv, causal=False, kv_len=kv_valid)
+        cache_update(st["k"], st["v"], k, v, lengths, cfg.rglru.local_window)
+        kv_valid = torch.clamp(lengths + 1, max=st["k"].shape[1])
+        ctx = attend(q, st["k"], st["v"], causal=False, kv_len=kv_valid)
         x = x + attn_out(p["attn"], ctx)
-        st = {"k": ck, "v": cv}
     h = apply_norm(cfg, p["ln2"], x)
-    return x + apply_mlp(cfg, p["mlp"], h), st
+    return x + apply_mlp(cfg, p["mlp"], h)
+
+
+def _h_to_fp32(cache: dict) -> None:
+    """``rec_mix`` returns h in fp32 where the cache declares the model dtype
+    (as in the JAX package): the first decode step turns each h leaf into
+    fp32, as the JAX one's output does, and later steps write it in place."""
+    states = [st for key, st in cache["groups"].items() if key.endswith("_rec")]
+    for st in states + [st for st in cache["tail"] if "h" in st]:
+        if st["h"].dtype != torch.float32:
+            st["h"] = st["h"].float()
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
+    """One new token; writes every block's state and the lengths into the
+    cache it is handed and returns that same cache (the JAX engine donates
+    it)."""
     token = batch["token"]
     lengths = cache["len"]
+    _h_to_fp32(cache)
     x = embed(params["embed"], token[:, None])
     pat, g, rem = layout(cfg)
     keys = [f"b{i}_{kind}" for i, kind in enumerate(pat)]
-    states = {key: [] for key in keys}
     for l in range(g):
         pg, cg = layer_slice(params["groups"], l), layer_slice(cache["groups"], l)
         for key, kind in zip(keys, pat):
-            x, st = _decode_block(cfg, kind, pg[key], x, lengths, cg[key])
-            states[key].append(st)
-    groups_new = {key: _stack(states[key]) for key in keys} if g else cache["groups"]
-    tail_new = []
+            x = _decode_block(cfg, kind, pg[key], x, lengths, cg[key])
     for kind, p, st in zip(rem, params["tail"], cache["tail"]):
-        x, st2 = _decode_block(cfg, kind, p, x, lengths, st)
-        tail_new.append(st2)
+        x = _decode_block(cfg, kind, p, x, lengths, st)
     x = apply_norm(cfg, params["ln_f"], x)
     logits = unembed(cfg, params["embed"], x)
-    return logits, {"groups": groups_new, "tail": tail_new, "len": lengths + 1}
+    lengths += 1
+    return logits, cache

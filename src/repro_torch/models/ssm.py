@@ -135,12 +135,14 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int):
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
+    """One new token; writes each layer's conv tail and state, and the
+    lengths, into the cache it is handed and returns that same cache (the
+    JAX engine donates it)."""
     token = batch["token"]
     di, nh, G, N, _ = _dims(cfg)
     B = token.shape[0]
     P = cfg.ssm.head_dim
     h = embed(params["embed"], token[:, None])
-    convs, states = [], []
     for l in range(cfg.num_layers):
         pl = layer_slice(params["blocks"], l)
         hn = rmsnorm(h, pl["ln"]["w"])
@@ -155,12 +157,9 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
             pl["D"],
         )
         h = _gate_out(pl, h, y.reshape(B, 1, di), z)
-        convs.append(conv_tail)
-        states.append(ssm_new.to(h.dtype))
+        cache["conv"][l].copy_(conv_tail)
+        cache["state"][l].copy_(ssm_new)  # rounds to the model dtype, as the JAX package stores it
     h = rmsnorm(h, params["ln_f"]["w"])
     logits = unembed(cfg, params["embed"], h)
-    return logits, {
-        "conv": torch.stack(convs),
-        "state": torch.stack(states),
-        "len": cache["len"] + 1,
-    }
+    cache["len"] += 1
+    return logits, cache

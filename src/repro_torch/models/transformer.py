@@ -99,24 +99,25 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int):
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
-    """One new token against the cache; returns (logits, new cache)."""
+    """One new token against the cache; returns (logits, cache).  The step
+    writes the new K/V rows and the lengths into the cache it is handed and
+    returns that same cache (the JAX engine donates it)."""
     token = batch["token"]  # [B]
     lengths = cache["len"]  # absolute number of tokens so far
     x = embed(params["embed"], token[:, None])
     positions = lengths[:, None]
-    ks, vs = [], []
+    kv_valid = torch.clamp(lengths + 1, max=cache["k"].shape[2])
     for l in range(cfg.num_layers):
         pl = layer_slice(params["blocks"], l)
         h = apply_norm(cfg, pl["ln1"], x)
         q, k, v = qkv(cfg, pl["attn"], h, positions)
-        ck, cv = cache_update(cache["k"][l], cache["v"][l], k, v, lengths, cfg.sliding_window)
-        kv_valid = torch.clamp(lengths + 1, max=ck.shape[1])
+        ck, cv = cache["k"][l], cache["v"][l]
+        cache_update(ck, cv, k, v, lengths, cfg.sliding_window)
         ctx = attend(q, ck, cv, causal=False, kv_len=kv_valid)
         x = x + attn_out(pl["attn"], ctx)
         h = apply_norm(cfg, pl["ln2"], x)
         x = x + apply_mlp(cfg, pl["mlp"], h)
-        ks.append(ck)
-        vs.append(cv)
     x = apply_norm(cfg, params["ln_f"], x)
     logits = unembed(cfg, params["embed"], x)
-    return logits, {"k": torch.stack(ks), "v": torch.stack(vs), "len": lengths + 1}
+    lengths += 1
+    return logits, cache

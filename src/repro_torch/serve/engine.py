@@ -6,9 +6,11 @@ live batch cache; every ``step()`` decodes one token for all slots.  Both
 phases run through THAPI ``prefill``/``decode_step`` spans and
 :class:`TracedStep` launches — the serving tally of §4.3.
 
-The engine runs on the device its parameters live on.  The splice writes the
-prefill row into the engine's cache in place (the engine owns that cache);
-each decode step returns a fresh cache, as the JAX engine's donated one.
+The engine runs on the device its parameters live on.  It owns its cache:
+the splice writes a prefill row into it in place, and the decode step,
+whose cache argument is donated as in the JAX engine, writes the new rows
+and states into it and returns it.  Token tensors are int32, as the JAX
+engine's are.
 """
 
 from __future__ import annotations
@@ -31,12 +33,13 @@ class ServeConfig:
     cache_len: int = 128
     max_new_tokens: int = 16
     eos_id: int = -1  # -1: length-only stopping (synthetic serving)
+    greedy: bool = True  # the JAX config's field; decoding is greedy either way
 
 
 @dataclasses.dataclass
 class Request:
     rid: int
-    prompt: np.ndarray  # [S] int
+    prompt: np.ndarray  # [S] int32
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
 
@@ -56,16 +59,17 @@ class ServeEngine:
             name=f"decode_step[{model.cfg.name}]",
             device=self.device,
             flops=2 * model.cfg.active_params() * B,
+            donate_argnums=(1,),
         )
         self.slots: List[Optional[Request]] = [None] * B
         self.queue: List[Request] = []
         self.completed: List[Request] = []
-        self._tok = torch.zeros(B, dtype=torch.long, device=self.device)
+        self._tok = torch.zeros(B, dtype=torch.int32, device=self.device)
         self._prefill_steps: Dict[int, TracedStep] = {}
 
     # -- request intake -----------------------------------------------------------
     def submit(self, prompt: np.ndarray) -> Request:
-        r = Request(rid=next(self._rid), prompt=np.asarray(prompt, np.int64))
+        r = Request(rid=next(self._rid), prompt=np.asarray(prompt, np.int32))
         self.queue.append(r)
         return r
 
@@ -138,7 +142,7 @@ class ServeEngine:
         rid = self.slots[active[0]].rid
         with decode_step_span(rid, len(active), self.cfg.cache_len) as sp:
             logits, self.cache = self._decode(self.params, self.cache, {"token": self._tok})
-            nxt = torch.argmax(logits[:, 0, : self.model.cfg.vocab_size], dim=-1)
+            nxt = torch.argmax(logits[:, 0, : self.model.cfg.vocab_size], dim=-1).to(torch.int32)
             sp.outs["tokens_out"] = len(active)
         self._tok = nxt
         host = nxt.cpu().numpy()

@@ -2,8 +2,10 @@
 
 A trace the port writes tallies the same under the JAX ``tally_trace`` and
 the port's own; a traced port serving run records the same framework rows as
-the JAX one; the port's trace model extends the JAX builtin model eid for
-eid; shared events encode byte for byte alike.  Also the port's guards: no
+the JAX one, and for each model family the same dispatch payloads (argument
+bytes, and the donated decode cache's bytes); the decode step writes the
+engine's cache in place; the port's trace model extends the JAX builtin
+model eid for eid; shared events encode byte for byte alike.  Also the port's guards: no
 JAX or ``repro`` import anywhere in the port, no CPU fallback in the
 launcher, and an error for every tracing knob whose module is not ported.
 """
@@ -53,23 +55,8 @@ def _prompts(vocab):
 
 @pytest.fixture(scope="module")
 def traces(tmp_path_factory):
-    """One traced serving run per package (default mode), same weights and prompts."""
-    jm = JaxModel(jax_get_config("mamba2-1.3b").smoke())
-    jp = jm.init(jax.random.PRNGKey(0))
-    tm = Model(get_config("mamba2-1.3b").smoke())
-    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
-    out = {}
-    for name, (Tr, Cfg, Eng, SCfg, model, params) in {
-        "jax": (JaxTracer, JaxTraceConfig, JaxServeEngine, JaxServeConfig, jm, jp),
-        "torch": (Tracer, TraceConfig, ServeEngine, ServeConfig, tm, tp),
-    }.items():
-        d = str(tmp_path_factory.mktemp(f"serve_{name}"))
-        eng = Eng(model, params, SCfg(**SERVE))
-        reqs = [eng.submit(p) for p in _prompts(model.cfg.vocab_size)]
-        with Tr(Cfg(out_dir=d, mode="default")):
-            eng.run_until_drained()
-        out[name] = (d, [r.out_tokens for r in reqs])
-    return out
+    """One traced Mamba2 serving run per package (default mode), same weights and prompts."""
+    return _served("mamba2-1.3b", tmp_path_factory)
 
 
 def _norm(obj: dict) -> dict:
@@ -98,6 +85,115 @@ def test_serving_trace_matches_jax_framework_rows(traces):
     assert {a for _, a in tt.device_apis} == {a for _, a in jt.device_apis}
     n_layers = get_config("mamba2-1.3b").smoke().num_layers
     assert tt.device_apis[("ust_kernel", "ssd_scan")].calls == n_layers * len(PROMPT_LENS)
+
+
+def _served(arch, tmp_path_factory, prompt_lens=PROMPT_LENS):
+    """One traced serving run of ``arch``'s smoke model per package (default
+    mode), same weights and prompts: {package: (trace dir, tokens)}."""
+    jm = JaxModel(jax_get_config(arch).smoke())
+    jp = jm.init(jax.random.PRNGKey(0))
+    tm = Model(get_config(arch).smoke())
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, jm.cfg.vocab_size, size=(S,)) for S in prompt_lens]
+    out = {}
+    for name, (Tr, Cfg, Eng, SCfg, model, params) in {
+        "jax": (JaxTracer, JaxTraceConfig, JaxServeEngine, JaxServeConfig, jm, jp),
+        "torch": (Tracer, TraceConfig, ServeEngine, ServeConfig, tm, tp),
+    }.items():
+        d = str(tmp_path_factory.mktemp(f"serve_{name}"))
+        eng = Eng(model, params, SCfg(**SERVE))
+        reqs = [eng.submit(p) for p in prompts]
+        with Tr(Cfg(out_dir=d, mode="default")):
+            eng.run_until_drained()
+        out[name] = (d, [r.out_tokens for r in reqs])
+    return out
+
+
+@pytest.fixture(scope="module", params=["recurrentgemma-2b", "h2o-danube-1.8b"])
+def family_traces(request, tmp_path_factory):
+    return _served(request.param, tmp_path_factory)
+
+
+def _dispatch_rows(source_cls, trace_dir) -> set:
+    """(fn, nargs, arg_bytes, donated_bytes) of every dispatch entry of a trace."""
+    keys = ("fn", "nargs", "arg_bytes", "donated_bytes")
+    return {
+        tuple(e.field(k) for k in keys) for e in source_cls(trace_dir) if e.name.endswith(":dispatch_entry")
+    }
+
+
+def _check_dispatch_rows(served):
+    """The port's dispatch rows carry the JAX engine's payloads: the decode
+    row donates the whole cache, whose bytes it records (int32 tokens on
+    both sides), and the prefill rows donate nothing."""
+    (jd, jtoks), (td, ttoks) = served["jax"], served["torch"]
+    assert ttoks == jtoks
+    got, want = _dispatch_rows(CTFSource, td), _dispatch_rows(JaxCTFSource, jd)
+    assert got == want
+    decode = [r for r in got if r[0].startswith("decode_step[")]
+    assert len(decode) == 1 and 0 < decode[0][3] < decode[0][2]
+    prefill = [r for r in got if r[0].startswith("prefill[")]
+    assert len(prefill) == len(set(PROMPT_LENS)) and all(r[3] == 0 for r in prefill)
+
+
+def test_dispatch_rows_carry_the_jax_engines_bytes(traces):
+    _check_dispatch_rows(traces)
+
+
+def test_dispatch_rows_of_the_other_families_carry_the_jax_engines_bytes(family_traces):
+    _check_dispatch_rows(family_traces)
+
+
+@pytest.mark.parametrize("arch,dtype", [
+    ("mamba2-1.3b", "float32"),
+    ("recurrentgemma-2b", "float32"),
+    ("h2o-danube-1.8b", "float32"),
+    ("mamba2-1.3b", "bfloat16"),
+    ("recurrentgemma-2b", "bfloat16"),
+    ("h2o-danube-1.8b", "bfloat16"),
+])
+def test_decode_step_writes_the_engines_cache_in_place(arch, dtype):
+    """Every cache leaf keeps its storage from step to step, and the decode
+    step returns the cache it was handed.  A bf16 RecurrentGemma cache
+    declares h in bf16 and the RG-LRU gives it in fp32, so the first step
+    turns those leaves fp32, as the JAX step's output does, once."""
+    import dataclasses
+
+    model = Model(dataclasses.replace(get_config(arch).smoke(), dtype=dtype))
+    params = model.init(torch.Generator().manual_seed(0))
+    eng = ServeEngine(model, params, ServeConfig(batch_slots=2, cache_len=32, max_new_tokens=5))
+    for p in _prompts(model.cfg.vocab_size):
+        eng.submit(p)
+    cache = eng.cache
+
+    def ptrs():
+        out = []
+        stack = [cache]
+        while stack:
+            t = stack.pop()
+            if isinstance(t, torch.Tensor):
+                out.append(t.data_ptr())
+            else:
+                stack.extend(t.values() if isinstance(t, dict) else t)
+        return out
+
+    eng.step()
+    after_first = ptrs()
+    while eng.step() or eng.queue:
+        assert eng.cache is cache and ptrs() == after_first
+    assert len(eng.completed) == len(PROMPT_LENS)
+    logits, out = model.decode_step(params, cache, {"token": torch.zeros(2, dtype=torch.int32)})
+    assert out is cache and ptrs() == after_first
+
+
+def test_serve_config_takes_the_jax_keywords():
+    import dataclasses
+
+    fields = {f.name: f.default for f in dataclasses.fields(ServeConfig)}
+    assert fields == {f.name: f.default for f in dataclasses.fields(JaxServeConfig)}
+    kw = dict(batch_slots=2, cache_len=64, max_new_tokens=3, eos_id=7, greedy=True)
+    assert dataclasses.asdict(ServeConfig(**kw)) == dataclasses.asdict(JaxServeConfig(**kw))
 
 
 def _ssd_span_payloads(source_cls, trace_dir):
@@ -150,7 +246,7 @@ def _drive(tp_cls, model, reg_cls):
         r["ust_repro:decode_step_entry"](i, 2, 32)
         pair["ust_repro:poll_ready"](2**40 + i, 5000 + i, i % 2 == 0)
         r["ust_repro:decode_step_exit"](0, 2)
-        r["ust_jaxrt:dispatch_entry"]("step", 3, 1 << 20, 0)
+        r["ust_jaxrt:dispatch_entry"]("step", 3, 1 << 20, 1 << 19)
         r["ust_jaxrt:dispatch_exit"](0)
     out = b"".join(ring.drain() for ring in reg.rings())
     tp.detach()
