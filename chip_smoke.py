@@ -24,18 +24,22 @@ Phases, each fatal on failure:
      prefills (and a 4096-token one) and a decode step, and profile the
      decode step (the copy kernels' share) and the 1024- and 4096-token
      prefills (the SSD passes' share); then the tracing-overhead turns;
-  3. RecurrentGemma-2B: hold the RG-LRU scan kernel against its plain
-     version at C=2560 for (B, S) in (1,1), (4,1), (1,100), (1,1024),
-     (1,3000), with h0 absent, fp32 and bf16, and at S=1024 and 3000 with
-     the decays of the model's init (0.9 to 0.999), where h carries far
-     (fp32 within 2e-5, bf16 within 2e-2); time both; hold a five-layer full-width model (one group and
+  3. RecurrentGemma-2B: hold the RG-LRU scan kernel (a time-chunked scan
+     across a thread-block cluster) against its plain version at C=2560
+     for (B, S) in (1,1), (4,1), (1,100), (1,1024), (1,3000), with h0
+     absent, fp32 and bf16; at S=1024 and 3000 with the decays of the
+     model's init (0.9 to 0.999), where h carries far; and at S = 129, 1025
+     and 8192 (a cluster of two, a second round, eight rounds) (fp32 within
+     2e-5, bf16 within 2e-2); time both, with the kernel's achieved HBM
+     rate; hold a five-layer full-width model (one group and
      a two-block tail) on the card against the CPU in fp32; serve the
      full-width model (26 layers, bf16) the same way: cache_len 2048,
      prompts of 100, 512, 1024, 2040 (its ring wraps while decoding), 3000
      (longer than the window, so the prefill ring is rolled) and 512
      tokens; check that every prefill and every decode step went through
      the RG-LRU kernel in each of the 18 recurrent blocks; profile a warm
-     decode step (the copy kernels' share) and prefill.  Each serving run
+     decode step (the copy kernels' share) and the 1024- and 3000-token
+     prefills (the RG-LRU kernel's share, 18 launches each).  Each serving run
      resets the launch counts just before it and reads them just after;
   4. h2o-danube-1.8b: count the HGMMA (wgmma) instructions in the SASS of
      each bf16 flash-attention instance (cuobjdump, where the toolkit has
@@ -107,6 +111,15 @@ DANUBE_CACHE_LEN = 4096
 #: (prompt tokens, cache_len) of the two-layer danube card-against-CPU runs
 DANUBE_CPU_CASES = ((600, 512), (5000, 4096))
 NEW_TOKENS = 16
+#: the CUDA kernels of one RG-LRU call, named in the device time: the chunked
+#: scan, and for S <= 8 (decode) the step kernel (the one-thread-a-channel
+#: kernel before them was rglru_scan_kernel)
+RGLRU_KERNEL = "rglru_chunk_kernel"
+RGLRU_STEP_KERNEL = "rglru_step_kernel"
+#: (B, S) of the RG-LRU timings: decode over 1 and 4 slots, prefills
+RGLRU_TIME_SHAPES = ((1, 1), (4, 1), (1, 100), (1, 1024), (1, 3000))
+#: RecurrentGemma-2B prompts whose warm prefill is profiled (the RG-LRU share)
+RG_PROFILE_LENS = (1024, 3000)
 #: fp32 operations per element of the RG-LRU (4 exp, 2 divisions, a sqrt
 #: and ~13 adds, multiplies, maxima and FMAs), for its bound
 RGLRU_OPS_PER_ELEMENT = 20
@@ -364,11 +377,11 @@ def ssd_bound(S: int, chunk: int, x, Bm, state0) -> tuple:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def ssd_time_rows(sizes, passes: tuple = SSD_BF16_PASSES) -> list:
+def ssd_time_rows(sizes) -> list:
     """Times at the serving path's shapes, one layer's prefill, bf16, batch
     1: (S, ms, device ms, plain ms, bound ms, bound by) for each S.  The
-    device time sums the kernels in ``passes``, each of which must be
-    recorded: every kernel the wrapper launches."""
+    device time sums the SSD_BF16_PASSES, each of which must be recorded:
+    every kernel the wrapper launches."""
     import torch
 
     from repro_torch.kernels import ref, ssd_scan
@@ -379,7 +392,7 @@ def ssd_time_rows(sizes, passes: tuple = SSD_BF16_PASSES) -> list:
         x, dt, A_log, Bm, Cm, D, _ = ssd_inputs(S, torch.bfloat16, False, seed=7)
         call = lambda: ssd_scan.ssd_scan(x, dt, A_log, Bm, Cm, D, chunk=chunk)  # noqa: E731
         ms = cuda_ms(call)
-        by_pass = kernel_device_ms(call, passes)
+        by_pass = kernel_device_ms(call, SSD_BF16_PASSES)
         dev = sum(by_pass.values())
         plain = cuda_ms(lambda: ref.ssd_ref(x, dt, A_log, Bm, Cm, D, chunk=chunk))
         bound, by = ssd_bound(S, chunk, x, Bm, None)
@@ -471,16 +484,59 @@ def rglru_inputs(B: int, S: int, dtype, h0_dtype, seed: int, C: int = 2560, long
     return x, r, i, lam, h0
 
 
+def rglru_bytes(x, h0) -> int:
+    """Bytes one call must move: x, r, i read and y written once, lam, h0 and h_last once."""
+    B, _, C = x.shape
+    return 4 * x.numel() * x.element_size() + C * 4 + B * C * 4 * (2 if h0 is not None else 1)
+
+
 def rglru_bound(x, h0) -> tuple:
-    """Least time for one call: x, r, i read and y written once, lam, h0 and
-    h_last once, over HBM; RGLRU_OPS_PER_ELEMENT fp32 operations per element
-    over the fp32 CUDA-core peak (none of it is a matrix product).  Returns
-    (ms, bound_by)."""
-    B, S, C = x.shape
-    nbytes = 4 * x.numel() * x.element_size() + C * 4 + B * C * 4 * (2 if h0 is not None else 1)
-    t_bytes = nbytes / HBM_BYTES_PER_S
+    """Least time for one call: ``rglru_bytes`` over HBM, and
+    RGLRU_OPS_PER_ELEMENT fp32 operations per element over the fp32
+    CUDA-core peak (none of it is a matrix product).  Returns (ms, bound_by)."""
+    t_bytes = rglru_bytes(x, h0) / HBM_BYTES_PER_S
     t_ops = RGLRU_OPS_PER_ELEMENT * x.numel() / FP32_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rglru_kernel_name(B: int, S: int) -> str:
+    """The CUDA kernel this tree's RG-LRU call launches at bf16 [B,S,2560]."""
+    import torch
+
+    from repro_torch.kernels import rglru_scan
+
+    return RGLRU_STEP_KERNEL if rglru_scan.kernel_plan(torch.bfloat16, B, S, 2560)["step"] else RGLRU_KERNEL
+
+
+def rglru_time_rows(shapes, kernel_of=rglru_kernel_name, plain: bool = True) -> dict:
+    """Times at the serving path's shapes, bf16, C=2560: prefill (no h0) and
+    decode (an fp32 h0, as the cache holds after the first step).  (B, S) ->
+    (ms per call by CUDA events, device ms of the kernel ``kernel_of(B, S)``
+    by the profiler, plain ms or None, bound ms, bound by); prints each with
+    the achieved HBM rate (the bytes the call must move over its device
+    time)."""
+    import torch
+
+    from repro_torch.kernels import ref, rglru_scan
+
+    rows = {}
+    for B, S in shapes:
+        kernel = kernel_of(B, S)
+        x, r, i, lam, h0 = rglru_inputs(B, S, torch.bfloat16, torch.float32 if S == 1 else None, 99)
+        call = lambda: rglru_scan.rglru_scan(x, r, i, lam, h0=h0)  # noqa: E731
+        ms = cuda_ms(call)
+        dev = kernel_device_ms(call, (kernel,))[kernel]
+        plain_ms = cuda_ms(lambda: ref.rglru_ref(x, r, i, lam, h0=h0)) if plain else None
+        bound, by = rglru_bound(x, h0)
+        rows[(B, S)] = (ms, dev, plain_ms, bound, by)
+        print(
+            f"[rglru-time] bf16 B={B} S={S} C=2560: kernel {ms:.4f} ms per call (CUDA events), "
+            f"{dev:.4f} ms on the device (profiler, {kernel}), "
+            f"{rglru_bytes(x, h0) / (dev * 1e-3) / 1e12:.3f} TB/s of the card's {HBM_BYTES_PER_S / 1e12:.2f}, "
+            + (f"plain {plain_ms:.4f} ms, " if plain else "")
+            + f"bound {bound:.5f} ms ({by})"
+        )
+    return rows
 
 
 def check_rglru() -> dict:
@@ -488,11 +544,14 @@ def check_rglru() -> dict:
 
     from repro_torch.kernels import ref, rglru_scan
 
-    shapes = [(1, 1), (4, 1), (1, 100), (1, 1024), (1, 3000)]
+    shapes = RGLRU_TIME_SHAPES
     # (B, S, h0 dtype, long memory): every shape with Λ ~ N(0, 1), then the
     # long prompts with the decays of the model's init, where h carries far
     cases = [(B, S, h0, False) for B, S in shapes for h0 in (None, torch.float32, torch.bfloat16)]
     cases += [(1, S, h0, True) for S in (1024, 3000) for h0 in (None, torch.float32)]
+    # one piece and a step (a cluster of two), a cluster span and a step (a
+    # second round), and eight rounds
+    cases += [(1, S, h0, False) for S in (129, 1025, 8192) for h0 in (None, torch.float32)]
     max_err = 0.0
     seed = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -520,22 +579,12 @@ def check_rglru() -> dict:
                 raise AssertionError(f"rglru_scan disagrees with rglru_ref at B={B} S={S} {dtype}")
             max_err = max(max_err, err_y, err_h)
 
-    # times at the serving path's shapes, bf16: prefill (no h0) and decode
-    # (an fp32 h0, as the cache holds after the first step)
-    rows = {}
-    for B, S in shapes:
-        x, r, i, lam, h0 = rglru_inputs(B, S, torch.bfloat16, torch.float32 if S == 1 else None, 99)
-        call = lambda: rglru_scan.rglru_scan(x, r, i, lam, h0=h0)  # noqa: E731
-        ms = cuda_ms(call)
-        dev = kernel_device_ms(call, ("rglru_scan_kernel",))["rglru_scan_kernel"]
-        plain = cuda_ms(lambda: ref.rglru_ref(x, r, i, lam, h0=h0))
-        bound, by = rglru_bound(x, h0)
-        rows[(B, S)] = (ms, dev, plain, bound, by)
-        print(
-            f"[rglru-time] bf16 B={B} S={S} C=2560: kernel {ms:.4f} ms per call (CUDA events), "
-            f"{dev:.4f} ms on the device (profiler), "
-            f"plain {plain:.4f} ms, bound {bound:.5f} ms ({by})"
-        )
+    rows = rglru_time_rows(RGLRU_TIME_SHAPES)
+    for B, S in RGLRU_TIME_SHAPES:
+        plan = rglru_scan.kernel_plan(torch.bfloat16, B, S, 2560)
+        print(f"[rglru-plan] bf16 B={B} S={S}: {'step' if plan['step'] else 'chunked'} kernel, "
+              f"cluster {plan['cluster']}, rounds {plan['rounds']}, "
+              f"grid ({plan['grid_x']}, {plan['grid_y']}) x {plan['threads']} threads")
     # ms and plain_ms: medians of CUDA events around one call; device_ms:
     # the kernel's own time in a profiler trace
     ms, dev, plain, bound, by = rows[(1, 1024)]
@@ -1070,15 +1119,15 @@ def serve_full_width() -> dict:
     return {"ssd_scan": launches["ssd_scan"]}
 
 
-def mamba2_prefill_profiles(model, params, rng, tag: str, passes: tuple = SSD_BF16_PASSES) -> None:
+def mamba2_prefill_profiles(model, params, rng, tag: str) -> None:
     """Warm Mamba2 prefills of 1024 and 4096 tokens under the profiler: busy
-    time, idle share and the share of the SSD kernels in ``passes``."""
+    time, idle share and the share of the SSD_BF16_PASSES."""
     import torch
 
     for S in (1024,) + MAMBA2_LONG_PROMPT:
         toks = torch.as_tensor(rng.integers(0, model.cfg.vocab_size, size=(1, S)), device=DEVICE)
         profile_step(lambda t=toks: model.prefill(params, {"tokens": t}, 2048), f"prefill S={S}", tag,
-                     kernels=passes, launches=model.cfg.num_layers * len(passes))
+                     kernels=SSD_BF16_PASSES, launches=model.cfg.num_layers * len(SSD_BF16_PASSES))
 
 
 def serve_recurrentgemma() -> dict:
@@ -1106,9 +1155,21 @@ def serve_recurrentgemma() -> dict:
     tok = torch.zeros(eng.cfg.batch_slots, dtype=torch.int32, device=DEVICE)
     profile_step(lambda: model.decode_step(params, eng.cache, {"token": tok}), "decode step (4 slots)", "serve-rg",
                  kernels=("copy",))
-    toks = torch.as_tensor(rng.integers(0, model.cfg.vocab_size, size=(1, 1024)), device=DEVICE)
-    profile_step(lambda: model.prefill(params, {"tokens": toks}, 2048), "prefill S=1024", "serve-rg")
+    rg_prefill_profiles(model, params, rng, "serve-rg")
     return {"rglru_scan": launches["rglru_scan"]}
+
+
+def rg_prefill_profiles(model, params, rng, tag: str, kernel: str = RGLRU_KERNEL) -> None:
+    """Warm RecurrentGemma-2B prefills of RG_PROFILE_LENS tokens under the
+    profiler: busy time, idle share and the share of the RG-LRU kernel,
+    launched once in each recurrent block."""
+    import torch
+
+    n_rec = model.cfg.block_counts()[1]
+    for S in RG_PROFILE_LENS:
+        toks = torch.as_tensor(rng.integers(0, model.cfg.vocab_size, size=(1, S)), device=DEVICE)
+        profile_step(lambda t=toks: model.prefill(params, {"tokens": t}, 2048), f"prefill S={S}", tag,
+                     kernels=(kernel,), launches=n_rec)
 
 
 def serve_danube() -> dict:
@@ -1211,14 +1272,13 @@ def compare_only(src: str) -> int:
     """``--compare [SRC]``: the readings this slice moved, with the package
     under ``SRC``, a directory inside this checkout (default: its own
     ``src``; a parent tree goes unpacked under the gitignored ``build/``),
-    so that two trees run the same measuring code in one call: the SSD
-    kernel's times at S = 1024 and 4096 (a tree from before the three bf16
-    passes runs one kernel, ``ssd_scan_kernel``),
-    and the bf16 flash-attention kernel's at danube's S = 1024 and 4096
-    (it shares the ``wgmma`` helpers);
-    the full-width Mamba2 prefills of 1024 and 4096 tokens (warm times and
-    profiles); and the full-width h2o-danube-1.8b traced session's peak
-    memory and its decode step's profile with the copy kernels' share."""
+    so that two trees run the same measuring code in one call: the RG-LRU
+    kernel's times at (B, S) = (1, 1), (4, 1), (1, 1024) and (1, 3000) (a
+    tree from before the time-chunked scan runs ``rglru_scan_kernel`` at
+    every S); the
+    full-width RecurrentGemma-2B prefills of 1024 and 3000 tokens (warm
+    times and profiles, the RG-LRU share); and its traced session's
+    tokens/s."""
     import numpy as np
     import torch
 
@@ -1227,34 +1287,22 @@ def compare_only(src: str) -> int:
         print(f"chip_smoke: --compare takes a tree inside the checkout, not {src}", file=sys.stderr)
         return 1
     sys.path.insert(0, src)
-    from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels import rglru_scan
 
-    print(f"[compare] {ssd_scan.__file__}")
-    passes = SSD_BF16_PASSES if hasattr(ssd_scan, "kernel_plan") else ("ssd_scan_kernel",)
+    print(f"[compare] {rglru_scan.__file__}")
+    new = hasattr(rglru_scan, "kernel_plan")
     torch.backends.cuda.matmul.allow_tf32 = False
-    ssd_time_rows((1024, 4096), passes)
-    from repro_torch.kernels import flash_attention
-
-    for S in FLASH_TIME_S[:2]:
-        q, k, v = flash_inputs(1, S, S, 32, 8, 80, torch.bfloat16, seed=7)
-        call = lambda: flash_attention.flash_attention(q, k, v, causal=True, window=4096)  # noqa: E731
-        print(f"[compare] flash_attention bf16 danube S={S}: {cuda_ms(call):.4f} ms per call (CUDA events), "
-              f"{sum(kernel_device_ms(call, ('flash_attention_wgmma_kernel',)).values()):.4f} ms "
-              "on the device (profiler)")
-    model, params = init_full_width("mamba2-1.3b", "compare")
-    rng = np.random.default_rng(0)
-    for S in (1024,) + MAMBA2_LONG_PROMPT:
+    rglru_time_rows(((1, 1), (4, 1), (1, 1024), (1, 3000)),
+                    rglru_kernel_name if new else (lambda B, S: "rglru_scan_kernel"), plain=False)
+    model, params = init_full_width("recurrentgemma-2b", "compare")
+    rng = np.random.default_rng(1)
+    for S in RG_PROFILE_LENS:
         toks = torch.as_tensor(rng.integers(0, model.cfg.vocab_size, size=(1, S)), device=DEVICE)
         host, done_ms = host_vs_device(lambda t=toks: model.prefill(params, {"tokens": t}, 2048))
         print(f"[compare] prefill S={S}: {done_ms:.2f} ms to completion, host enqueue {host:.2f} ms "
               f"(median of 5, warm)")
-    mamba2_prefill_profiles(model, params, rng, "compare", passes)
-    del model, params
-    model, params = init_full_width("h2o-danube-1.8b", "compare")
-    eng, _, _, _ = traced_session(model, params, DANUBE_PROMPT_LENS, rng, "compare", cache_len=DANUBE_CACHE_LEN)
-    tok = torch.zeros(eng.cfg.batch_slots, dtype=torch.int32, device=DEVICE)
-    profile_step(lambda: model.decode_step(params, eng.cache, {"token": tok}), "danube decode step (4 slots)",
-                 "compare", kernels=("copy",))
+    rg_prefill_profiles(model, params, rng, "compare", RGLRU_KERNEL if new else "rglru_scan_kernel")
+    traced_session(model, params, RG_PROMPT_LENS, rng, "compare")
     return 0
 
 

@@ -1,7 +1,8 @@
 // Building blocks of the Hopper (sm_90a) tensor-core kernels under csrc/:
 // shared-memory addresses, the 128-byte swizzled tile layout, cp.async,
 // wgmma shared-memory descriptors and the m64nNk16 bf16 products; and, on
-// the host, the once-per-device opt-in to more than 48 KB of shared memory.
+// the host, the once-per-device opt-in to more than 48 KB of shared memory
+// (which the RG-LRU scan uses too).
 //
 // Layout.  A bf16 tile of `rows` rows is stored as column blocks of 64
 // columns (one 128-byte row each); 16-byte chunk c of row r sits at chunk
@@ -153,16 +154,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // The attribute belongs to the device, so a launcher keeps one of these as a
 // static and sets it once per device (a bit each for devices 0-63; others
 // set it on every launch).  Two threads may both set it the first time:
-// setting it twice is harmless.
+// setting it twice is harmless.  A `carveout` other than the default
+// (cudaSharedmemCarveoutDefault, -1) also sets the kernel's preferred share
+// of the SM's L1 / shared memory, in percent.
 class SmemOptIn {
  public:
-  cudaError_t operator()(const void* kernel, size_t bytes) {
+  cudaError_t operator()(const void* kernel, size_t bytes, int carveout = cudaSharedmemCarveoutDefault) {
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
     const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
     if (bit & done_.load(std::memory_order_acquire)) return cudaSuccess;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err == cudaSuccess && carveout != cudaSharedmemCarveoutDefault)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, carveout);
     if (err == cudaSuccess) done_.fetch_or(bit, std::memory_order_release);
     return err;
   }

@@ -2,13 +2,18 @@
 ``csrc/rglru_scan.cu``.
 
 Replaces the TPU kernel ``src/repro/kernels/rglru_scan.py::rglru_pallas`` and
-computes what ``ref.rglru_ref`` computes.  The design and its bound are noted
-in the CUDA source.
+computes what ``ref.rglru_ref`` computes.  The design (a time-chunked scan
+whose carry crosses a thread-block cluster) and its bound are noted in the
+CUDA source.  One call is one launch and counts once in :data:`launches`.
 
 ``x``, ``r`` and ``i`` are ``[B,S,C]`` in one dtype (fp32 or bf16), ``lam``
 is ``[C]`` (read in fp32), ``h0`` is ``[B,C]`` or None and is read in fp32,
 as the Pallas kernel's ``.astype(f32)`` does.  Returns ``y`` in x's dtype and
 ``h_last [B,C]`` fp32.
+
+:func:`kernel_plan` reads the launch's tiling from the CUDA source
+(``rglru_scan_plan``), for the card tests to hold against the mirror that
+``tests/test_torch_rglru_chunks.py`` checks on the CPU.
 """
 
 from __future__ import annotations
@@ -38,7 +43,19 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.rglru_scan_error_string.argtypes = [ctypes.c_int]
         lib.rglru_scan_error_string.restype = ctypes.c_char_p
+        lib.rglru_scan_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        lib.rglru_scan_plan.restype = ctypes.c_int
     return lib
+
+
+def kernel_plan(dtype: torch.dtype, B: int, S: int, C: int) -> dict:
+    """The CUDA source's own kernel and tiling of one launch (builds the
+    library): ``step`` 1 for the step kernel (S <= ``sub_steps``)."""
+    out = (ctypes.c_int * 10)()
+    if dtype not in _DTYPE_CODE or _lib().rglru_scan_plan(_DTYPE_CODE[dtype], B, S, C, out) != 0:
+        raise ValueError(f"rglru_scan_plan refused dtype={dtype} B={B} S={S} C={C}")
+    keys = ("step", "cluster", "rounds", "tile", "grid_x", "grid_y", "threads", "sub_steps", "chunk", "smem")
+    return dict(zip(keys, out))
 
 
 def rglru_scan(

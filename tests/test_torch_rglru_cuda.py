@@ -6,14 +6,16 @@ it also runs on the machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_rglru_cuda.py
 
-Tolerances: fp32 2e-5 (the same fp32 arithmetic; the FMA rounds once where
-the plain version may round twice), bf16 2e-2 (both compute in fp32 from the
-same bf16 inputs; the output rounds to bf16).
+Tolerances: fp32 2e-5 (the same fp32 arithmetic, except that the h entering
+each chunk is composed from the chunks before it, and the FMA rounds once
+where the plain version may round twice), bf16 2e-2 (both compute in fp32
+from the same bf16 inputs; the output rounds to bf16).
 """
 
 import numpy as np
 import pytest
 import torch
+from torch_rglru_chunks import CHUNK, MAX_CLUSTER, plan
 
 from repro_torch.kernels import ref, rglru_scan
 
@@ -55,9 +57,15 @@ def inputs(B, S, C, dtype, h0, device, seed=0, long_memory=False):
     [
         (1, 1, 2560),  # a decode step at RecurrentGemma-2B's width
         (4, 1, 2560),  # a decode step over 4 slots
-        (1, 100, 2560),  # S not a multiple of the kernel's 8-step groups
-        (1, 1024, 2560),
-        (2, 37, 100),  # ragged channels: the last block is partly masked
+        (2, 8, 2560),  # the longest S the step kernel takes
+        (1, 100, 2560),  # a ragged sub-chunk and piece, no cluster
+        (1, CHUNK, 2560),  # one piece: the longest S without a cluster
+        (1, CHUNK + 1, 2560),  # a cluster of two, the second piece one step
+        (1, 1024, 2560),  # one full cluster span
+        (1, MAX_CLUSTER * CHUNK + 1, 2560),  # a second round of one step
+        (1, 8192, 2560),  # eight rounds: more pieces than one cluster holds
+        (4, 1024, 2560),  # batch rows
+        (2, 37, 100),  # ragged channels: masked scalar loads and stores
         (3, 9, 33),
     ],
 )
@@ -80,14 +88,44 @@ def test_kernel_matches_plain_on_card(cuda, B, S, C, h0, dtype):
 @pytest.mark.parametrize("h0", [None, torch.float32])
 @pytest.mark.parametrize("S", [1024, 3000])
 def test_kernel_matches_plain_on_card_with_long_memory(cuda, S, h0, dtype):
-    """The decays the model's init gives: h carries across the kernel's load
-    groups and the whole prompt, where a dropped or doubled carry shows."""
+    """The decays the model's init gives: h carries across the kernel's
+    sub-chunks, the cluster's pieces and (at 3000) its rounds, where a dropped
+    or doubled carry shows."""
     t = inputs(1, S, 2560, dtype, h0, cuda, seed=2, long_memory=True)
     y, h = rglru_scan.rglru_scan(**t)
     want_y, want_h = ref.rglru_ref(**t)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(h, want_h, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_takes_inputs_not_16_byte_aligned(cuda, dtype):
+    """Contiguous views that start one element into a buffer take the masked
+    scalar loads and stores; the result is the same."""
+    t = inputs(1, 300, 2560, dtype, torch.float32, cuda, seed=3)
+    shifted = {}
+    for k in ("x", "r", "i"):
+        buf = torch.empty(t[k].numel() + 1, dtype=dtype, device=cuda)
+        shifted[k] = buf[1:].view(t[k].shape)
+        shifted[k].copy_(t[k])
+    assert shifted["x"].data_ptr() % 16
+    y, h = rglru_scan.rglru_scan(**{**t, **shifted})
+    want_y, want_h = rglru_scan.rglru_scan(**t)
+    torch.testing.assert_close(y, want_y, rtol=0, atol=0)
+    torch.testing.assert_close(h, want_h, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,S,C", [(1, 1, 2560), (4, 1, 2560), (1, 1024, 2560), (1, 3000, 2560), (1, 8192, 2560), (3, 9, 33)]
+)
+def test_kernel_plan_is_the_python_mirror(cuda, B, S, C, dtype):
+    """The launch's tiling as the CUDA source has it, against
+    tests/torch_rglru_chunks.py (checked on the CPU)."""
+    assert rglru_scan.kernel_plan(dtype, B, S, C) == plan(dtype, B, S, C)
 
 
 @pytest.mark.cuda
