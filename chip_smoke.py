@@ -66,7 +66,19 @@ Phases, each fatal on failure:
      kernels' share) and the 4096- and 5000-token prefills, with the flash
      kernel's share of each prefill's device time;
   5. the full-mode polling fence, and the command-line launcher at full
-     width under a trace, for the three models.
+     width under a trace, for the three models;
+  6. iprof: ``python -m repro_torch.core.iprof run`` launches full-width
+     RecurrentGemma-2B serving in its own process, then tally (one compile
+     row for the decode step, one dispatch a step, the RG-LRU launches),
+     validate, pretty, timeline, index and tally again; the same workload
+     under --aggregate-only and under the tally-only rung tallies the same
+     calls per API.
+In phases 2-4 the ``[graph]`` phase also serves each full-width model with
+the engine's decode step replaying its CUDA graph, against the eager
+``decode_step`` on a clone of the cache at every step (tokens identical,
+cache and logits within 1e-2 relative), and times the replay beside the
+eager step.  The serving runs' launch counts are those that ran: a decode
+graph's replays run the launches its capture recorded.
 traced_session and warm_step_times take the serving cache_len (2048 unless
 a phase says otherwise).
 Prints the card's name and power limit first, a ``{"kernels": [...]}`` line
@@ -120,6 +132,8 @@ RGLRU_STEP_KERNEL = "rglru_step_kernel"
 RGLRU_TIME_SHAPES = ((1, 1), (4, 1), (1, 100), (1, 1024), (1, 3000))
 #: RecurrentGemma-2B prompts whose warm prefill is profiled (the RG-LRU share)
 RG_PROFILE_LENS = (1024, 3000)
+#: the [graph] phase's prompts (6 requests over 4 slots), each family
+GRAPH_PROMPT_LENS = (100, 512, 1024, 256, 512, 100)
 #: fp32 operations per element of the RG-LRU (4 exp, 2 divisions, a sqrt
 #: and ~13 adds, multiplies, maxima and FMAs), for its bound
 RGLRU_OPS_PER_ELEMENT = 20
@@ -154,14 +168,42 @@ def _kernel_modules() -> tuple:
     return ssd_scan, rglru_scan, flash_attention
 
 
+def _decode_graphs():
+    """The decode-graph module of the tree under test, where it has one (a
+    tree from before the decode graph runs every decode step eagerly)."""
+    return sys.modules.get("repro_torch.serve.artifacts")
+
+
 def reset_launches() -> None:
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch count to 0, and the decode graphs'
+    counts of launches captured and replayed."""
     for mod in _kernel_modules():
         mod.launches = 0
+    art = _decode_graphs()
+    if art is not None:
+        art.captured_launches.clear()
+        art.replayed_launches.clear()
 
 
 def read_launches() -> dict:
-    return {mod.__name__.rsplit(".", 1)[1]: mod.launches for mod in _kernel_modules()}
+    """The launches of each kernel that ran: its wrapper's count (the eager
+    calls, and the calls a decode graph's capture recorded without running
+    them), less the launches captured, plus those that the graphs' replays
+    ran (captured launches x replays)."""
+    counts = {mod.__name__.rsplit(".", 1)[1]: mod.launches for mod in _kernel_modules()}
+    art = _decode_graphs()
+    if art is None:
+        return counts
+    return {k: n - art.captured_launches.get(k, 0) + art.replayed_launches.get(k, 0) for k, n in counts.items()}
+
+
+def launch_detail() -> str:
+    art = _decode_graphs()
+    if art is None:
+        return ""
+    wrappers = {mod.__name__.rsplit(".", 1)[1]: mod.launches for mod in _kernel_modules()}
+    return (f" (wrapper counts {wrappers}, captured into decode graphs {dict(art.captured_launches)}, "
+            f"run by their replays {dict(art.replayed_launches)})")
 
 
 def card_line() -> str:
@@ -254,7 +296,7 @@ def kernel_device_ms(fn, kernels: tuple, reps: int = 20, tries: int = 3) -> dict
     raise AssertionError(f"the profiler recorded no single kernel named like each of {missing} in {tries} sessions")
 
 
-def profile_step(fn, label: str, tag: str, kernels: tuple = (), launches: int = 0, tries: int = 3) -> None:
+def profile_step(fn, label: str, tag: str, kernels: tuple = (), launches: int = 0, tries: int = 3):
     """One warm call of ``fn`` under torch.profiler: wall time to completion,
     the card's busy time (the kernels' and copies' device intervals; one
     stream, so they do not overlap), its idle share, the kernels that take
@@ -264,7 +306,8 @@ def profile_step(fn, label: str, tag: str, kernels: tuple = (), launches: int = 
     no device operation, none named like one of ``kernels``, or (when
     ``launches`` is given) other than ``launches`` of them, is taken again,
     up to ``tries`` sessions; raises if none recorded each of ``kernels``,
-    and says so if none recorded all ``launches``."""
+    and says so if none recorded all ``launches``.  Returns the busy ms (None
+    when the profiler recorded no device time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -305,6 +348,7 @@ def profile_step(fn, label: str, tag: str, kernels: tuple = (), launches: int = 
         ms = sum(e.time_range.elapsed_us() for e in mine) / 1e3
         print(f"[{tag}] profile {label}: {'/'.join(kernels)} {ms:.3f} ms of the {busy:.2f} ms busy "
               f"({ms / busy:.3f}), {len(mine)} launches" + (f" of the {launches} that ran" if launches else ""))
+    return busy
 
 
 # ---------------------------------------------------------------------------
@@ -1003,7 +1047,9 @@ def traced_session(model, params, prompt_lens, rng, tag: str, cache_len: int = 2
         eng.submit(rng.integers(0, cfg.vocab_size, size=(S,)))
     trace_dir = tempfile.mkdtemp(prefix="thapi_smoke_")
     try:
+        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        start_alloc = torch.cuda.memory_allocated()
         reset_launches()
         with Tracer(TraceConfig(out_dir=trace_dir, mode="default")):
             t0 = time.perf_counter()
@@ -1011,7 +1057,9 @@ def traced_session(model, params, prompt_lens, rng, tag: str, cache_len: int = 2
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         launches = read_launches()
+        detail = launch_detail()
         peak = torch.cuda.max_memory_allocated()
+        end_alloc = torch.cuda.memory_allocated()
         tally = tally_trace(trace_dir)
         print(render(tally, top=12))
         print(render(tally, top=12, device=True))
@@ -1031,8 +1079,9 @@ def traced_session(model, params, prompt_lens, rng, tag: str, cache_len: int = 2
         raise AssertionError("no ust_repro:decode_step rows")
     tokens = sum(len(r.out_tokens) for r in done)
     print(f"[{tag}] {n} requests, {tokens} tokens in {wall:.3f} s: {tokens / wall:.2f} tokens/s; "
-          f"{decode.calls} decode steps; peak device memory {peak / 2**30:.3f} GiB; "
-          f"launches {launches}")
+          f"{decode.calls} decode steps; peak device memory {peak / 2**30:.3f} GiB (allocated at the start "
+          f"{start_alloc / 2**30:.3f} GiB, at the end {end_alloc / 2**30:.3f} GiB); "
+          f"launches {launches}{detail}")
     for (prov, name), st in sorted(tally.device_apis.items()):
         if name.startswith("prefill[") or name.startswith("decode_step["):
             print(f"[{tag}] traced {name}: {st.calls} call(s), avg {st.avg_ns / 1e6:.3f} ms (first call per length included)")
@@ -1090,6 +1139,7 @@ def serve_full_width() -> dict:
     if launches["ssd_scan"] != cfg.num_layers * n:
         raise AssertionError(f"ssd_scan launches {launches['ssd_scan']} != {cfg.num_layers} x {n}")
     warm_step_times(model, params, eng, PROMPT_LENS + MAMBA2_LONG_PROMPT, rng, "serve")
+    graph_phase(model, params, GRAPH_PROMPT_LENS, rng, "mamba2", long_prompt=4096)
     tok = torch.zeros(eng.cfg.batch_slots, dtype=torch.int32, device=DEVICE)
     profile_step(lambda: model.decode_step(params, eng.cache, {"token": tok}), "decode step (4 slots)", "serve",
                  kernels=("copy",))
@@ -1152,6 +1202,7 @@ def serve_recurrentgemma() -> dict:
     print(f"[serve-rg] rglru_scan launches {launches['rglru_scan']} = {n_rec} recurrent blocks x "
           f"({n} prefills + {steps} decode steps); h leaves {sorted({str(h.dtype) for h in hs})}")
     warm_step_times(model, params, eng, RG_PROMPT_LENS, rng, "serve-rg")
+    graph_phase(model, params, GRAPH_PROMPT_LENS, rng, "recurrentgemma")
     tok = torch.zeros(eng.cfg.batch_slots, dtype=torch.int32, device=DEVICE)
     profile_step(lambda: model.decode_step(params, eng.cache, {"token": tok}), "decode step (4 slots)", "serve-rg",
                  kernels=("copy",))
@@ -1194,6 +1245,7 @@ def serve_danube() -> dict:
     print(f"[serve-dn] flash_attention launches {launches['flash_attention']} = {L} layers x {n} prefills "
           f"(none in the {steps} decode steps)")
     warm_step_times(model, params, eng, DANUBE_PROMPT_LENS, rng, "serve-dn", cache_len=DANUBE_CACHE_LEN)
+    graph_phase(model, params, GRAPH_PROMPT_LENS, rng, "danube", cache_len=DANUBE_CACHE_LEN, long_prompt=5000)
     tok = torch.zeros(eng.cfg.batch_slots, dtype=torch.int32, device=DEVICE)
     profile_step(lambda: model.decode_step(params, eng.cache, {"token": tok}), "decode step (4 slots)", "serve-dn",
                  kernels=("copy",))
@@ -1202,6 +1254,259 @@ def serve_danube() -> dict:
         profile_step(lambda t=toks: model.prefill(params, {"tokens": t}, DANUBE_CACHE_LEN), f"prefill S={S}",
                      "serve-dn", kernels=("flash_attention_wgmma_kernel",), launches=L)
     return {"flash_attention": launches["flash_attention"]}
+
+
+# ---------------------------------------------------------------------------
+# The decode step as a CUDA graph
+# ---------------------------------------------------------------------------
+
+#: the [graph] phase: 6 requests over 4 slots, GRAPH_NEW_TOKENS each, so two
+#: slots are refilled between decode steps
+GRAPH_NEW_TOKENS = 8
+GRAPH_TOL = 1e-2  # relative, bf16: cuBLAS may choose another algorithm under capture
+GRAPH_PROFILE_REPLAYS = 3
+
+
+def _rel(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def graph_phase(model, params, prompt_lens, rng, tag: str, cache_len: int = 2048, long_prompt: int = 3000) -> None:
+    """The engine's decode step replays its CUDA graph: before every decode
+    step the cache and token buffer are cloned, the engine steps (its first
+    step runs eagerly and captures the graph) and ``model.decode_step`` runs
+    eagerly on the clone.  Greedy tokens must be identical, every cache leaf
+    and the replay's logits within GRAPH_TOL relative; at least 8 steps with
+    a slot refill between two of them.  Then the replay's and the eager
+    step's time to completion, host enqueue time and idle share, the memory
+    the capture kept, and the RG-LRU step kernel's launches over a few
+    replays under the profiler against the launches captured."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve.artifacts import DecodeGraph
+
+    V = model.cfg.vocab_size
+    long_toks = torch.as_tensor(rng.integers(0, V, size=(1, long_prompt)), device=DEVICE)
+
+    def prefill_peak() -> float:
+        """MiB that a warm ``long_prompt`` prefill adds at its peak to what is allocated."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        model.prefill(params, {"tokens": long_toks}, cache_len)
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    peak_before = prefill_peak()
+    eng = ServeEngine(model, params, ServeConfig(batch_slots=4, cache_len=cache_len, max_new_tokens=GRAPH_NEW_TOKENS))
+    if not isinstance(eng.decode_fn, DecodeGraph):
+        raise AssertionError(f"the engine's decode step is {eng.decode_fn!r}, not a DecodeGraph")
+    for S in prompt_lens:
+        eng.submit(rng.integers(0, V, size=(S,)))
+    steps, refilled_at, worst, mem = 0, [], {"logits": 0.0, "cache": 0.0}, None
+    while True:
+        before = sum(s is not None for s in eng.slots)
+        eng._fill_slots()  # refill first, so the clone sees what the step sees
+        if not any(s is not None for s in eng.slots):
+            break
+        if steps and sum(s is not None for s in eng.slots) > before:
+            refilled_at.append(steps)
+        cache, tok = _clone(eng.cache), eng._tok.clone()
+        if steps == 0:
+            torch.cuda.synchronize()
+            mem = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+        eng.step()
+        if steps == 0:
+            torch.cuda.synchronize()
+            mem = (torch.cuda.memory_allocated() - mem[0], torch.cuda.memory_reserved() - mem[1])
+        steps += 1
+        logits, cache = model.decode_step(params, cache, {"token": tok})
+        want = torch.argmax(logits[:, 0, :V], dim=-1).to(torch.int32)
+        if not torch.equal(eng._tok, want):
+            raise AssertionError(f"[{tag}] decode step {steps}: replayed tokens {eng._tok.tolist()} != eager {want.tolist()}")
+        if steps > 1:
+            worst["logits"] = max(worst["logits"], _rel(eng.decode_fn._out[0], logits))
+        for got, ref in zip(_leaves(eng.cache), _leaves(cache), strict=True):
+            if got.dtype != ref.dtype:
+                raise AssertionError(f"[{tag}] cache leaf dtype {got.dtype} != eager {ref.dtype}")
+            worst["cache"] = max(worst["cache"], _rel(got, ref))
+    g = eng.decode_fn
+    if steps < 8 or not refilled_at or g.replays != steps - 1:
+        raise AssertionError(f"[{tag}] graph: {steps} steps, refills at {refilled_at}, {g.replays} replays")
+    if max(worst.values()) > GRAPH_TOL:
+        raise AssertionError(f"[{tag}] graph against eager: largest relative difference {worst} > {GRAPH_TOL}")
+    print(f"[graph] {tag}: a warm {long_prompt}-token prefill adds {peak_before:.1f} MiB at its peak before the "
+          f"engine exists and {prefill_peak():.1f} MiB with the engine's graph captured")
+    print(f"[graph] {tag}: {steps} decode steps ({g.replays} replays of the captured graph), slots refilled "
+          f"before steps {[k + 1 for k in refilled_at]}; tokens identical to the eager step; largest relative "
+          f"difference logits {worst['logits']:.3g}, cache {worst['cache']:.3g} (tol {GRAPH_TOL}); launches "
+          f"captured {g.captured}; the first step (eager + capture) kept {mem[0] / 2**20:.1f} MiB allocated, "
+          f"{mem[1] / 2**20:.1f} MiB reserved")
+
+    batch = {"token": eng._tok}
+    host, done_ms = host_vs_device(lambda: g(params, eng.cache, batch))
+    ehost, edone = host_vs_device(lambda: model.decode_step(params, eng.cache, batch))
+    print(f"[graph] {tag}: decode step (4 slots): replay {done_ms:.2f} ms to completion, host enqueue "
+          f"{host:.3f} ms; eager {edone:.2f} ms to completion, host enqueue {ehost:.2f} ms (medians of 5, warm)")
+    busy = profile_step(lambda: g(params, eng.cache, batch), "decode step, replay (4 slots)", f"graph {tag}")
+    ebusy = profile_step(lambda: model.decode_step(params, eng.cache, batch), "decode step, eager (4 slots)",
+                         f"graph {tag}")
+    if busy and ebusy:
+        # the profiler's tracing of each kernel widens a graph's gaps, so the
+        # share is also read against the step's time to completion without it
+        print(f"[graph] {tag}: idle share against the time to completion without the profiler: replay "
+              f"{1 - busy / done_ms:.3f}, eager {1 - ebusy / edone:.3f}")
+
+    n_rec = g.captured.get("rglru_scan", 0)
+    want = {"rglru_scan": model.cfg.block_counts()[1]} if model.cfg.family == "hybrid" else {}
+    if g.captured != want:
+        raise AssertionError(f"[{tag}] launches captured {g.captured}, want {want}")
+    if n_rec:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(GRAPH_PROFILE_REPLAYS):
+                g.graph.replay()
+            torch.cuda.synchronize()
+        seen = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA and RGLRU_STEP_KERNEL in e.name)
+        if seen != n_rec * GRAPH_PROFILE_REPLAYS:
+            raise AssertionError(f"[{tag}] the profiler saw {seen} {RGLRU_STEP_KERNEL} launches in "
+                                 f"{GRAPH_PROFILE_REPLAYS} replays, want {n_rec} x {GRAPH_PROFILE_REPLAYS}")
+        print(f"[graph] {tag}: the profiler saw {seen} {RGLRU_STEP_KERNEL} launches in {GRAPH_PROFILE_REPLAYS} "
+              f"replays = {n_rec} captured x {GRAPH_PROFILE_REPLAYS}")
+    try:
+        g(params, _clone(eng.cache), batch)
+    except RuntimeError as e:
+        print(f"[graph] {tag}: a call with other storages raises: {e}")
+    else:
+        raise AssertionError(f"[{tag}] the decode graph replayed over other storages")
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone(v) for v in tree]
+    return tree.clone()
+
+
+# ---------------------------------------------------------------------------
+# iprof: launch traced serving, then analyse the trace offline and online
+# ---------------------------------------------------------------------------
+
+IPROF_TARGET = ["repro_torch.launch.serve:main", "--arch", "recurrentgemma-2b", "--full", "--requests", "6",
+                "--new-tokens", "16", "--cache-len", "2048", "--prompt-len", "512"]
+
+
+def _iprof_run(out: str, *flags: str) -> None:
+    """``python -m repro_torch.core.iprof run`` in its own process, as a user runs it."""
+    cmd = [sys.executable, "-m", "repro_torch.core.iprof", "run", "-m", "default", "-o", out, *flags, "--",
+           *IPROF_TARGET]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+    for line in proc.stdout.splitlines():
+        print(f"[iprof] run {' '.join(flags) or '(default)'}: {line}")
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"iprof run {flags} exited {proc.returncode}")
+    print(f"[iprof] run {' '.join(flags) or '(default)'}: {time.perf_counter() - t0:.1f} s in its own process")
+
+
+def _iprof(*argv: str) -> tuple:
+    """(exit code, standard output) of one in-process iprof analysis command."""
+    import contextlib
+    import io
+
+    from repro_torch.core.iprof import main as iprof
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = iprof(list(argv))
+    return rc, buf.getvalue()
+
+
+def _calls(t) -> dict:
+    return {**{k: s.calls for k, s in t.apis.items()}, **{("device",) + k: s.calls for k, s in t.device_apis.items()}}
+
+
+def iprof_phase() -> None:
+    """iprof launches full-width RecurrentGemma-2B serving (its decode step
+    replays the graph that holds the RG-LRU step kernel 18 times), then
+    tallies, validates, pretty-prints, exports the timeline, indexes and
+    tallies again; the same workload under --aggregate-only and under the
+    tally-only rung gives the same calls per API."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.aggregate import load_tally
+    from repro_torch.core.babeltrace import CTFSource
+    from repro_torch.core.plugins.tally import tally_trace
+
+    n_rec = get_config("recurrentgemma-2b").block_counts()[1]
+    root = tempfile.mkdtemp(prefix="thapi_iprof_")
+    try:
+        d = os.path.join(root, "default")
+        _iprof_run(d)
+        rc, tally_text = _iprof("tally", d)
+        print(tally_text, end="")
+        t = tally_trace(d)
+        rows = {"compile": {}, "dispatch": {}}
+        for e in CTFSource(d):
+            for api, by_fn in rows.items():
+                if e.name == f"ust_torchrt:{api}_entry":
+                    fn = e.field("fn").split("[")[0]
+                    by_fn[fn] = by_fn.get(fn, 0) + 1
+        prefills = t.apis[("ust_repro", "prefill")].calls
+        steps = t.apis[("ust_repro", "decode_step")].calls
+        spans = t.device_apis[("ust_kernel", "rglru_scan")].calls
+        # spans fire where the wrapper runs: each prefill, the eager first
+        # decode step and the capture; the replays run what the capture holds
+        launched = spans - n_rec + n_rec * (steps - 1)
+        ok = (rc == 0 and rows["compile"].get("decode_step") == 1 and rows["dispatch"].get("decode_step") == steps
+              and prefills == 6 and spans == n_rec * (prefills + 2) and launched == n_rec * (prefills + steps))
+        print(f"[iprof] tally: rc {rc}; compile rows {rows['compile']}, dispatch rows {rows['dispatch']}; "
+              f"{prefills} prefills, {steps} decode steps; rglru_scan spans {spans} = {n_rec} x ({prefills} "
+              f"prefills + the eager step + the capture), so {launched} launches ran = {n_rec} x ({prefills} + "
+              f"{steps})")
+        if not ok:
+            raise AssertionError("iprof tally: the rows above break a gate")
+        rc, text = _iprof("validate", d)
+        print(f"[iprof] validate: rc {rc}: {text.strip()}")
+        if rc != 0 or "[error]" in text:
+            raise AssertionError("iprof validate found an error")
+        rc, text = _iprof("pretty", d, "-n", "20")
+        lines = text.splitlines()
+        print(f"[iprof] pretty -n 20: rc {rc}, {len(lines)} lines; the first: {lines[0][:160] if lines else ''}")
+        if rc != 0 or len(lines) != 20:
+            raise AssertionError("iprof pretty")
+        tl = os.path.join(root, "timeline.json")
+        rc, text = _iprof("timeline", d, "-o", tl)
+        n_tl = len(json.load(open(tl))["traceEvents"])
+        print(f"[iprof] timeline: rc {rc}, {n_tl} events, {os.path.getsize(tl)} bytes")
+        if rc != 0 or not n_tl:
+            raise AssertionError("iprof timeline")
+        rc, text = _iprof("index", d)
+        rc2, again = _iprof("tally", d)
+        print(f"[iprof] index: rc {rc}: {text.strip()}; tally through the sidecars "
+              f"{'identical' if again == tally_text else 'DIFFERS'}")
+        if rc != 0 or rc2 != 0 or again != tally_text:
+            raise AssertionError("iprof tally after index differs")
+        want = _calls(t)
+        for flags, what in ((("--aggregate-only",), "aggregate"), (("--fidelity", "tally-only"), "online analyser")):
+            dd = os.path.join(root, flags[-1].lstrip("-"))
+            _iprof_run(dd, *flags)
+            got = _calls(load_tally(os.path.join(dd, "aggregate_rank0.tally")))
+            rc, text = _iprof("combine", dd)
+            leftover = [f for f in os.listdir(dd) if f.endswith((".ctf", ".ctfcol"))]
+            print(f"[iprof] {' '.join(flags)}: combine rc {rc}; the {what}'s tally has "
+                  f"{'the same' if got == want else 'OTHER'} calls per API as the default run's offline tally "
+                  f"({sum(got.values())} calls in {len(got)} rows); {len(leftover)} stream files left")
+            if rc != 0 or got != want or leftover:
+                raise AssertionError(f"iprof {flags}: {got} != {want}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1265,7 +1570,8 @@ def serve_launcher() -> None:
             )
         if rc != 0 or not ok:
             raise AssertionError(f"launcher {arch}: rc={rc}, launches {launches}")
-        print(f"[launch] repro_torch.launch.serve --arch {arch} --full --trace default: rc 0, launches {launches}")
+        print(f"[launch] repro_torch.launch.serve --arch {arch} --full --trace default: rc 0, launches {launches}"
+              f"{launch_detail()}")
 
 
 def compare_only(src: str) -> int:
@@ -1338,6 +1644,7 @@ def main(argv=()) -> int:
     launches.update(serve_danube())
     check_full_mode_fence()
     serve_launcher()
+    iprof_phase()
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if not k["launches"]:

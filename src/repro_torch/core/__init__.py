@@ -2,7 +2,9 @@
 
     from repro_torch.core import TraceConfig, Tracer, trace_session   # collection
     from repro_torch.core import TracedStep, kernel_span              # interception
+    from repro_torch.core import traced_device_put, traced_device_get # §1.1 memcpy
     from repro_torch.core.plugins.tally import tally_trace, render    # analysis
+    python -m repro_torch.core.iprof run|tally|index|pretty|timeline|validate|combine
 """
 
 from .api_model import (  # noqa: F401
@@ -16,5 +18,8 @@ from .interception import (  # noqa: F401
     decode_step_span,
     kernel_span,
     prefill_span,
+    record_alloc,
+    traced_device_get,
+    traced_device_put,
 )
 from .tracer import TraceConfig, TraceHandle, Tracer, trace_session  # noqa: F401

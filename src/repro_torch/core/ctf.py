@@ -181,6 +181,26 @@ class TraceMeta:
 #: (eid, ts_ns, payload) — payload is a memoryview into the stream buffer.
 RawEvent = Tuple[int, int, memoryview]
 
+_ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
+
+
+def _decompress(blob: bytes) -> bytes:
+    """A compressed stream's bytes: its one compressed frame (``StreamWriter``
+    closes it at ``close()``), then whatever follows the frame as raw framed
+    records — records appended to the file after it was written, which a
+    stale sidecar's byte count also sees.  A truncated frame yields what it
+    holds, as a torn plain stream does."""
+    if blob[:4] == _ZSTD_MAGIC:
+        import zstandard as zstd
+
+        d = zstd.ZstdDecompressor().decompressobj()
+    else:
+        import zlib
+
+        d = zlib.decompressobj()
+    out = d.decompress(blob)
+    return out + d.unused_data if d.eof else out
+
 
 class StreamReader:
     """Iterates framed records of one stream file.
@@ -208,18 +228,9 @@ class StreamReader:
         """(whole-stream buffer, release) — mmap-backed when uncompressed."""
         with open(self.path, "rb") as f:
             head = f.read(4)
-            if head[:4] == b"\x28\xb5\x2f\xfd":  # zstd frame magic
-                import zstandard as zstd
-
+            if head[:4] == _ZSTD_MAGIC or head[:1] == b"\x78":  # zstd / zlib (MAGIC starts with 'T')
                 f.seek(0)
-                raw = zstd.ZstdDecompressor().stream_reader(f.read()).read()
-                return memoryview(raw), lambda: None
-            if head[:1] == b"\x78":  # zlib header (MAGIC starts with 'T')
-                import zlib
-
-                f.seek(0)
-                raw = zlib.decompress(f.read())
-                return memoryview(raw), lambda: None
+                return memoryview(_decompress(f.read())), lambda: None
             import mmap
 
             try:

@@ -7,9 +7,10 @@ just names and timestamps (§1.1's zeCommandListAppendMemoryCopy example).
 Interception points of the PyTorch stack:
 
   ust_repro       framework API   — serve calls (prefill / decode_step)
-  ust_torchrt     torch dispatch  — eager step dispatches and first-call
-                                    "compiles", CUDA-event fences
-  ust_kernel      device layer    — step and kernel spans
+  ust_torchrt     torch dispatch  — step dispatches and first-call
+                                    "compiles", CUDA-event fences, h2d/d2h
+                                    copies and allocations
+  ust_kernel      device layer    — step, kernel and transfer spans
 
 Pointer convention reproduced from the paper: host addresses start ``0x00``,
 device addresses ``0xff`` — so analysis can deduce H2D vs D2H from the
@@ -26,13 +27,25 @@ import time
 from contextlib import contextmanager
 from typing import Any, Callable, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .clock import now
+from .telemetry import TransferGauge
 from .tracer import active_tracer, get_tracepoints
+
+# Transfer kinds (ust_torchrt:memcpy / ust_kernel:transfer `kind` field)
+H2D, D2H, D2D = 0, 1, 2
 
 _DEVICE_PTR_TAG = 0xFF00_0000_0000_0000
 _PTR_MASK = 0x0000_FFFF_FFFF_FFFF
+
+
+def host_ptr(x: Any) -> int:
+    """Host address (0x00-prefixed): a numpy array's or a tensor's buffer."""
+    if isinstance(x, np.ndarray):
+        return x.ctypes.data & _PTR_MASK
+    return x.data_ptr() & _PTR_MASK
 
 
 def device_ptr(x: torch.Tensor) -> int:
@@ -68,9 +81,14 @@ class _TP:
         self.compile_exit = r["ust_torchrt:compile_exit"]
         self.block_entry = r["ust_torchrt:block_until_ready_entry"]
         self.block_exit = r["ust_torchrt:block_until_ready_exit"]
-        # fused entry/exit pair: one ring reservation per poll of the spin loop
-        self.poll_pair = tps.record_pair["ust_repro:poll_ready"]
+        # fused entry/exit pairs: one ring reservation for both records,
+        # where the wrapper holds all exit values when it records
+        p = tps.record_pair
+        self.memcpy_pair = p["ust_torchrt:memcpy"]
+        self.alloc_pair = p["ust_torchrt:alloc"]
+        self.poll_pair = p["ust_repro:poll_ready"]
         self.kernel_span = r["ust_kernel:launch_span"]
+        self.transfer_span = r["ust_kernel:transfer_span"]
         self.fw = {
             name: (r[f"ust_repro:{name}_entry"], r[f"ust_repro:{name}_exit"])
             for name in ("prefill", "decode_step")
@@ -172,6 +190,77 @@ class TracedStep:
         th.block_entry(0)
         ev.synchronize()
         th.block_exit(0)
+
+
+# ---------------------------------------------------------------------------
+# ust_torchrt: traced transfers + allocation
+# ---------------------------------------------------------------------------
+
+
+def _fence(t: torch.Tensor) -> None:
+    """Wait until the copy that made ``t`` has finished (a pageable
+    host-to-card copy may return first), as ``jax.block_until_ready``."""
+    if t.device.type == "cuda":
+        torch.cuda.current_stream(t.device).synchronize()
+
+
+def traced_device_put(x: Any, device: Any = "cuda", *, kind: int = H2D) -> torch.Tensor:
+    """Copy ``x`` (a numpy array or a CPU tensor) to ``device`` with memcpy
+    interception (the paper's running example).
+
+    The entry payload carries the source (0x00 host) and destination (0xff
+    device) pointers and the size; in full mode the first 32 payload bytes
+    are dumped (``ArgDump`` meta-parameter — "values behind pointers",
+    §1.1).  The copy is fenced before the exit stamp.
+    """
+    src_t = torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+    tr = active_tracer()
+    if tr is None or not tr.selected or tr.fidelity == "off":
+        out = src_t.to(device, copy=True)
+        _fence(out)
+        return out
+    t = tp()
+    nb = src_t.numel() * src_t.element_size()
+    src = host_ptr(x) if kind == H2D else device_ptr(src_t)
+    head = x.tobytes()[:32] if tr.full and isinstance(x, np.ndarray) else b""
+    ts_begin = now()
+    out = src_t.to(device, copy=True)
+    _fence(out)
+    ts_end = now()
+    # fused pair: one ring reservation frames entry+exit; the entry keeps the
+    # pre-copy timestamp
+    t.memcpy_pair(src, device_ptr(out), nb, kind, head, ts_begin, 0)
+    t.transfer_span(ts_begin, ts_end, nb, kind)
+    TransferGauge.bump_memcpy(nb)
+    return out
+
+
+def traced_device_get(x: torch.Tensor) -> np.ndarray:
+    """Card → host readback into a numpy array, traced as a D2H memcpy."""
+    tr = active_tracer()
+    if tr is None or not tr.selected or tr.fidelity == "off":
+        return x.detach().cpu().numpy()
+    t = tp()
+    nb = x.numel() * x.element_size()
+    ts_begin = now()
+    out = x.detach().to("cpu", copy=True).numpy()  # a blocking copy into pageable memory
+    ts_end = now()
+    t.memcpy_pair(device_ptr(x), host_ptr(out), nb, D2H, b"", ts_begin, 0)
+    t.transfer_span(ts_begin, ts_end, nb, D2H)
+    TransferGauge.bump_memcpy(nb)
+    return out
+
+
+def record_alloc(nbytes: int, device: int = 0) -> int:
+    """Record an allocation of ``nbytes`` on ``device`` as an alloc pair;
+    returns its synthetic 0xff device pointer."""
+    tr = active_tracer()
+    ts = now()
+    ptr = _DEVICE_PTR_TAG | (ts & _PTR_MASK)
+    if tr is not None and tr.selected and tr.fidelity != "off":
+        tp().alloc_pair(nbytes, device, ts, ptr)
+        TransferGauge.bump_alloc(nbytes)
+    return ptr
 
 
 # ---------------------------------------------------------------------------

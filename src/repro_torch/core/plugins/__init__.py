@@ -1,3 +1,5 @@
-"""Analysis plugins ported so far: the §4.3 tally."""
+"""Babeltrace2-style analysis plugins generated over the trace model
+(THAPI §3.4): Pretty Print, Tally, Timeline, and the post-mortem validation
+plugin of §4.2."""
 
-from . import tally  # noqa: F401
+from . import pretty, tally, timeline, validate  # noqa: F401

@@ -10,18 +10,21 @@ The tracer owns the collection side of the framework:
     ("trace specific groups of ranks in a large-scale setting", §3.2);
   * **consumer daemon** — drains every thread's ring buffer to CTF-lite
     streams on a period (LTTng's consumer/relay daemon), emitting
-    discarded-event records when drop counters advance.
+    discarded-event records when drop counters advance;
+  * **aggregate-only mode** (§3.7) — for multi-node runs keep only the tally
+    aggregate (kilobytes) instead of the full streams;
+  * **online analysis** (§6) — a live tally folded on the consumer thread,
+    which the ``tally-only`` fidelity rung uses in place of the streams.
 
-The live-analysis knobs (online tally, streaming masters, adaptive and
-remediation control, aggregate-only and columnar output) need modules that
-are not ported yet: setting any of them raises ``NotImplementedError``.
+The streaming masters and the adaptive and remediation loops are not ported
+yet: setting any of their knobs raises ``NotImplementedError``.
 
-Usage:
+Usage (the iprof CLI wraps exactly this):
 
     cfg = TraceConfig(out_dir="/tmp/t", mode="default", sample=True)
     with Tracer(cfg) as tr:
         ...traced application...
-    handle = tr.handle  # → analysis (tally)
+    handle = tr.handle  # → analysis (pretty/tally/timeline)
 """
 
 from __future__ import annotations
@@ -42,22 +45,22 @@ from .tracepoints import FIDELITY_MODES, Tracepoints
 
 MODES = ("minimal", "default", "full")
 
-#: TraceConfig fields whose modules are not ported yet; each must stay at its
-#: "off" value
+#: TraceConfig fields whose modules are not ported yet (live streaming and
+#: adaptive control; remediation); each must stay at its "off" value
 _UNPORTED = (
-    "online",
     "stream_to",
     "serve_port",
     "adaptive",
     "cluster_adaptive",
-    "aggregate_only",
-    "columnar",
     "remediation",
 )
 
 
 def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is ported in a later slice, see ROADMAP.md")
+    return NotImplementedError(
+        f"{what} is ported in a later slice (ROADMAP.md, modules to port: item 2, "
+        "live tracing, for streaming and adaptive control; item 5 for remediation)"
+    )
 
 
 @dataclasses.dataclass
@@ -71,29 +74,37 @@ class TraceConfig:
     rank: int = 0
     #: §3.2 — trace only these ranks (None = all). Non-selected ranks run untraced.
     ranks: Optional[Sequence[int]] = None
+    #: §3.7 — keep only the aggregate tally, delete raw streams at stop().
+    aggregate_only: bool = False
     #: escape hatch: False reverts recorders to the legacy bytes-build +
     #: RingBuffer.write path (byte-identical streams; see core/tracepoints.py)
     ring_reserve: bool = True
     #: zstd-compress CTF streams (space knob beyond Fig 8's mode ladder)
     compress: bool = False
+    #: write a columnar ``.ctfcol`` sidecar per stream at drain time (packed
+    #: interval columns + per-stream folded tally footer): repeat analysis
+    #: and timeline queries then skip record parsing entirely (see
+    #: core/ctf.py ColumnarWriter; staleness-checked, falls back safely)
+    columnar: bool = False
+    #: §6 future work, implemented: maintain a LIVE tally on the consumer
+    #: thread (read via tracer.online.snapshot() mid-run)
+    online: bool = False
     #: extra per-event overrides applied after the mode preset, e.g.
     #: {"ust_torchrt:alloc_entry": False}
     event_overrides: Optional[Dict[str, bool]] = None
-    #: starting rung of the fidelity ladder: "full" | "sampled" | "off"
-    #: ("tally-only" needs the online analyzer, not ported yet)
+    #: starting rung of the fidelity ladder (orthogonal to ``mode``, which
+    #: selects *what* is traced): "full" | "sampled" | "tally-only" | "off".
+    #: Switchable mid-run via Tracer.set_mode / repro_torch.trace.set_mode.
     fidelity: str = "full"
     #: 1/N systematic-sampling interval for the "sampled" rung
     sampling_interval: int = 64
     #: seed for the per-thread sampling phase RNG (None = nondeterministic)
     sampling_seed: Optional[int] = None
     # -- not ported yet: any value but the default raises --------------------
-    online: bool = False
     stream_to: Optional[str] = None
     serve_port: Optional[int] = None
     adaptive: Optional[Sequence] = None
     cluster_adaptive: Optional[Sequence] = None
-    aggregate_only: bool = False
-    columnar: bool = False
     remediation: Optional[object] = None
 
     def __post_init__(self):
@@ -109,8 +120,6 @@ class TraceConfig:
             value = getattr(self, name)
             if value is not None and value is not False:  # serve_port=0 is a port
                 raise _unported(f"TraceConfig.{name}")
-        if self.fidelity == "tally-only":
-            raise _unported('fidelity "tally-only"')
 
 
 def events_for_mode(model: TraceModel, mode: str, sample: bool) -> Set[int]:
@@ -171,6 +180,7 @@ class TraceHandle:
     events: int
     dropped: int
     size_bytes: int
+    aggregate_path: Optional[str] = None
     #: fidelity rung at stop time (see TraceConfig.fidelity)
     fidelity: str = "full"
 
@@ -192,10 +202,14 @@ class Tracer:
         self.registry: Optional[RingRegistry] = None
         self.handle: Optional[TraceHandle] = None
         self._writers: Dict[Tuple[int, int], StreamWriter] = {}
+        #: per-stream columnar sidecar writers (cfg.columnar) + shared engine
+        self._colwriters: Dict[Tuple[int, int], object] = {}
+        self._fold_engine = None
         self._consumer: Optional[threading.Thread] = None
         self._stop_evt = threading.Event()
         self._sampler: Optional[_telemetry.TelemetryDaemon] = None
         self._started = False
+        self.online = None  # OnlineAnalyzer when cfg.online or on the tally-only rung
         #: rank selected for tracing? (§3.2 selective rank tracing)
         self.selected = cfg.ranks is None or cfg.rank in set(cfg.ranks)
         #: fidelity-ladder state: current rung, rungs visited this session
@@ -205,6 +219,10 @@ class Tracer:
         self._fidelity = cfg.fidelity
         self._modes_used = [cfg.fidelity]
         self._drain_lock = threading.Lock()
+        self._seen_drops: Dict[Tuple[int, int], int] = {}
+        #: final in-process folded tally (set at stop() when an online
+        #: analyzer ran — always the case for tally-only sessions)
+        self.final_tally = None
 
     # -- properties used by the interception layer ---------------------------
     @property
@@ -236,8 +254,6 @@ class Tracer:
         """
         if mode not in FIDELITY_MODES:
             raise ValueError(f"unknown fidelity {mode!r} (want one of {FIDELITY_MODES})")
-        if mode == "tally-only":
-            raise _unported('fidelity "tally-only"')
         if not self._started:
             raise RuntimeError("tracer not started")
         if not self.selected:  # untraced rank: track the rung, nothing to flip
@@ -248,6 +264,10 @@ class Tracer:
             if mode == prev:
                 return prev
             self._drain_unlocked()  # pending records leave under the old policy
+            if mode == "tally-only" and self.online is None:
+                from .online import OnlineAnalyzer
+
+                self.online = OnlineAnalyzer(self.model, hostname=socket.gethostname())
             self.tp.set_fidelity(mode, interval=self.cfg.sampling_interval)
             self._fidelity = mode
             if mode not in self._modes_used:
@@ -286,6 +306,12 @@ class Tracer:
                 interval=self.cfg.sampling_interval,
                 seed=self.cfg.sampling_seed,
             )
+        # tally-only folds in-process via the online analyzer even when the
+        # live-tally feature itself wasn't requested
+        if self.cfg.online or self.cfg.fidelity == "tally-only":
+            from .online import OnlineAnalyzer
+
+            self.online = OnlineAnalyzer(self.model, hostname=socket.gethostname())
         self._stop_evt.clear()
         self._consumer = threading.Thread(
             target=self._consumer_loop, name="thapi-consumer", daemon=True
@@ -322,6 +348,10 @@ class Tracer:
             self._drain_once()  # final drain catches post-loop residue
             for w in self._writers.values():
                 w.close()
+            for key, cw in self._colwriters.items():
+                # staleness is keyed on the final on-disk stream size, so the
+                # stream writer must be closed (flushed) first
+                cw.close(os.path.getsize(self._writers[key].path))
             assert self.registry is not None and self.clock is not None
             write_metadata(
                 self.cfg.out_dir,
@@ -341,12 +371,34 @@ class Tracer:
                 },
                 mode=self.cfg.mode,
             )
+            events = self.registry.total_events
+            dropped = self.registry.total_dropped
+            if self.online is not None:
+                # flush unmatched entries exactly like the offline fold's
+                # finish(), and scale when the estimator semantics are exact
+                scale = self.cfg.sampling_interval if self._modes_used == ["sampled"] else 1
+                self.final_tally = self.online.finish(scale=scale)
+            agg_path = None
+            if self.cfg.aggregate_only:
+                agg_path = self._write_aggregate_and_prune()
+            elif (
+                "tally-only" in self._modes_used
+                and not self._writers
+                and self.final_tally is not None
+            ):
+                # a session that never streamed still leaves its kilobyte
+                # aggregate behind (§3.7 shape, producer-side fold)
+                from .aggregate import save_tally
+
+                agg_path = self._aggregate_path()
+                save_tally(self.final_tally, agg_path)
             self.handle = TraceHandle(
                 trace_dir=self.cfg.out_dir,
                 mode=self.cfg.mode,
-                events=self.registry.total_events,
-                dropped=self.registry.total_dropped,
+                events=events,
+                dropped=dropped,
                 size_bytes=trace_size_bytes(self.cfg.out_dir),
+                aggregate_path=agg_path,
                 fidelity=self._fidelity,
             )
         finally:
@@ -367,17 +419,40 @@ class Tracer:
             self._drain_unlocked()
 
     def _drain_unlocked(self) -> None:
-        """Drain every ring zero-copy into its stream.  A ring that has
-        produced nothing (an idle thread) gets no ``StreamWriter`` — and so
-        no empty ``stream_*.ctf`` file — until its first record or drop shows
-        up; the ``now()`` stamp for discard records is only taken when the
-        drop counter advanced.  Caller holds ``_drain_lock``."""
+        """Drain every ring zero-copy: stream + online analysis read the ring
+        storage through ``drain_view`` memoryviews and the region is released
+        only after both consumed it.  A ring that has produced nothing (an
+        idle thread) gets no ``StreamWriter`` — and so no empty
+        ``stream_*.ctf`` file — until its first record or drop shows up; the
+        ``now()`` stamp for discard records is only taken when the drop
+        counter advanced.
+
+        On the "tally-only" fidelity rung the stream path is bypassed
+        entirely — records fold straight into the online analyzer and no
+        ``.ctf`` file is created or appended; ring drops are accounted into
+        the online tally instead of a stream discard record.  Caller holds
+        ``_drain_lock`` (drains serialize against mid-run rung flips)."""
         assert self.registry is not None
         writers = self._writers
+        online = self.online
+        tally_only = self._fidelity == "tally-only"
         for ring in self.registry.rings():
             regions = ring.drain_view()
             dropped = ring.dropped
             key = (ring.pid, ring.tid)
+            if tally_only:
+                if regions:
+                    chunk = regions[0] if len(regions) == 1 else b"".join(regions)
+                    online.feed(chunk, ring.pid, ring.tid)
+                    ring.release()
+                seen = self._seen_drops.get(key)
+                if seen is None:
+                    w = writers.get(key)
+                    seen = w.seen_dropped if w is not None else 0
+                if dropped != seen:
+                    online.note_discarded(dropped - seen)
+                    self._seen_drops[key] = dropped
+                continue
             w = writers.get(key)
             if w is None:
                 if not regions and not dropped:
@@ -386,16 +461,63 @@ class Tracer:
                 w = writers[key] = StreamWriter(
                     path, ring.pid, ring.tid, compress=self.cfg.compress
                 )
+                # drops already accounted to the online tally during a
+                # tally-only window must not re-emit as stream discards
+                if key in self._seen_drops:
+                    w.seen_dropped = self._seen_drops.pop(key)
+            elif key in self._seen_drops:
+                w.seen_dropped = max(w.seen_dropped, self._seen_drops.pop(key))
+            cw = self._colwriters.get(key)
+            if cw is None and self.cfg.columnar:
+                cw = self._colwriters[key] = self._new_colwriter(w)
             if regions:
                 for r in regions:
                     w.append(r)
+                if online is not None or cw is not None:
+                    # two regions = wrap: records may straddle the boundary,
+                    # so the folds get them joined (rare; one copy)
+                    chunk = regions[0] if len(regions) == 1 else b"".join(regions)
+                    if online is not None:
+                        online.feed(chunk, ring.pid, ring.tid)
+                    if cw is not None:
+                        cw.append(chunk)
                 ring.release()
             if dropped != w.seen_dropped:
+                delta = dropped - w.seen_dropped
                 w.note_drops(dropped, now())
+                if cw is not None and delta > 0:
+                    # discard records go straight to the stream file; the
+                    # sidecar's footer tally must account them too
+                    cw.note_discard(delta)
+
+    def _new_colwriter(self, w: StreamWriter):
+        from .ctf import ColumnarWriter, sidecar_path
+
+        if self._fold_engine is None:
+            from .fold import FoldEngine
+
+            self._fold_engine = FoldEngine(self.model)
+        return ColumnarWriter(self._fold_engine, w.pid, w.tid, sidecar_path(w.path))
 
     def _consumer_loop(self) -> None:
         while not self._stop_evt.wait(self.cfg.flush_period_s):
             self._drain_once()
+
+    # -- §3.7 aggregate-only ---------------------------------------------------
+    def _aggregate_path(self) -> str:
+        return os.path.join(self.cfg.out_dir, f"aggregate_rank{self.cfg.rank}.tally")
+
+    def _write_aggregate_and_prune(self) -> str:
+        # Imported here: analysis layer depends on tracer, not vice versa.
+        from .aggregate import save_tally
+        from .plugins.tally import tally_trace
+
+        path = self._aggregate_path()
+        save_tally(tally_trace(self.cfg.out_dir), path)
+        for name in os.listdir(self.cfg.out_dir):
+            if name.endswith((".ctf", ".ctfcol")):
+                os.unlink(os.path.join(self.cfg.out_dir, name))
+        return path
 
 
 def trace_session(out_dir: str, mode: str = "default", **kw) -> Tracer:

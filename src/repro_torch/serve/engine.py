@@ -9,8 +9,11 @@ phases run through THAPI ``prefill``/``decode_step`` spans and
 The engine runs on the device its parameters live on.  It owns its cache:
 the splice writes a prefill row into it in place, and the decode step,
 whose cache argument is donated as in the JAX engine, writes the new rows
-and states into it and returns it.  Token tensors are int32, as the JAX
-engine's are.
+and states into it and returns it.  On the card the decode step is a CUDA
+graph (``artifacts.decode_artifacts``), captured at the first step and
+replayed at every later one over the same parameters, cache leaves and
+token buffer, so the engine never rebinds them.  Token tensors are int32,
+as the JAX engine's are.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import torch
 from repro_torch.core.interception import TracedStep, decode_step_span, prefill_span
 from repro_torch.models import Model, ShapeSpec
 from repro_torch.models.param import zeros as spec_zeros
+
+from .artifacts import decode_artifacts
 
 
 @dataclasses.dataclass
@@ -54,8 +59,10 @@ class ServeEngine:
         B = cfg.batch_slots
         shape = ShapeSpec("serve", "decode", cfg.cache_len, B)
         self.cache = spec_zeros(model.cache_specs(shape), model.cfg.dtype, self.device)
+        #: the step callable of ``decode_artifacts``: a DecodeGraph on the card
+        self.decode_fn = decode_artifacts(model, self.device)
         self._decode = TracedStep(
-            lambda p, c, b: model.decode_step(p, c, b),
+            self.decode_fn,
             name=f"decode_step[{model.cfg.name}]",
             device=self.device,
             flops=2 * model.cfg.active_params() * B,
@@ -64,6 +71,7 @@ class ServeEngine:
         self.slots: List[Optional[Request]] = [None] * B
         self.queue: List[Request] = []
         self.completed: List[Request] = []
+        #: the decode step's token input, written in place (the graph reads it)
         self._tok = torch.zeros(B, dtype=torch.int32, device=self.device)
         self._prefill_steps: Dict[int, TracedStep] = {}
 
@@ -141,10 +149,11 @@ class ServeEngine:
             return 0
         rid = self.slots[active[0]].rid
         with decode_step_span(rid, len(active), self.cfg.cache_len) as sp:
-            logits, self.cache = self._decode(self.params, self.cache, {"token": self._tok})
-            nxt = torch.argmax(logits[:, 0, : self.model.cfg.vocab_size], dim=-1).to(torch.int32)
+            logits, _ = self._decode(self.params, self.cache, {"token": self._tok})  # writes self.cache
+            # read before the next step: a replay writes the same logits
+            nxt = torch.argmax(logits[:, 0, : self.model.cfg.vocab_size], dim=-1)
             sp.outs["tokens_out"] = len(active)
-        self._tok = nxt
+        self._tok.copy_(nxt)
         host = nxt.cpu().numpy()
         for i in active:
             r = self.slots[i]

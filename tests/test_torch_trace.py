@@ -8,6 +8,8 @@ engine's cache in place; the port's trace model extends the JAX builtin
 model eid for eid; shared events encode byte for byte alike.  Also the port's guards: no
 JAX or ``repro`` import anywhere in the port, no CPU fallback in the
 launcher, and an error for every tracing knob whose module is not ported.
+The offline knobs (online tally, aggregate-only, columnar sidecars, the
+tally-only rung) tally a serving session as the JAX package's do.
 """
 
 import os
@@ -21,6 +23,7 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.core import TraceConfig as JaxTraceConfig
 from repro.core import Tracer as JaxTracer
+from repro.core.aggregate import load_tally as jax_load_tally
 from repro.core.api_model import builtin_trace_model as jax_builtin_trace_model
 from repro.core.babeltrace import CTFSource as JaxCTFSource
 from repro.core.plugins.tally import render as jax_render
@@ -33,6 +36,7 @@ from repro.serve import ServeEngine as JaxServeEngine
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.core import TracedStep, TraceConfig, Tracer
+from repro_torch.core.aggregate import load_tally
 from repro_torch.core.api_model import builtin_trace_model
 from repro_torch.core.babeltrace import CTFSource
 from repro_torch.core.plugins.tally import render, tally_trace
@@ -87,9 +91,11 @@ def test_serving_trace_matches_jax_framework_rows(traces):
     assert tt.device_apis[("ust_kernel", "ssd_scan")].calls == n_layers * len(PROMPT_LENS)
 
 
-def _served(arch, tmp_path_factory, prompt_lens=PROMPT_LENS):
+def _served(arch, tmp_path_factory, prompt_lens=PROMPT_LENS, knobs=None, tracers=None):
     """One traced serving run of ``arch``'s smoke model per package (default
-    mode), same weights and prompts: {package: (trace dir, tokens)}."""
+    mode, and the TraceConfig ``knobs``), same weights and prompts:
+    {package: (trace dir, tokens)}; each package's Tracer goes into
+    ``tracers`` when it is given."""
     jm = JaxModel(jax_get_config(arch).smoke())
     jp = jm.init(jax.random.PRNGKey(0))
     tm = Model(get_config(arch).smoke())
@@ -104,9 +110,11 @@ def _served(arch, tmp_path_factory, prompt_lens=PROMPT_LENS):
         d = str(tmp_path_factory.mktemp(f"serve_{name}"))
         eng = Eng(model, params, SCfg(**SERVE))
         reqs = [eng.submit(p) for p in prompts]
-        with Tr(Cfg(out_dir=d, mode="default")):
+        with Tr(Cfg(out_dir=d, mode="default", **(knobs or {}))) as tr:
             eng.run_until_drained()
         out[name] = (d, [r.out_tokens for r in reqs])
+        if tracers is not None:
+            tracers[name] = tr
     return out
 
 
@@ -281,20 +289,53 @@ def test_traced_step_is_a_passthrough_without_a_session():
 @pytest.mark.parametrize(
     "knob,value",
     [
-        ("online", True),
         ("stream_to", "localhost:1"),
         ("serve_port", 0),
         ("adaptive", []),
         ("cluster_adaptive", []),
-        ("aggregate_only", True),
-        ("columnar", True),
         ("remediation", object()),
-        ("fidelity", "tally-only"),
     ],
 )
 def test_unported_trace_knobs_raise(tmp_path, knob, value):
     with pytest.raises(NotImplementedError, match="later slice"):
         TraceConfig(out_dir=str(tmp_path), **{knob: value})
+
+
+def _knob_tally(knob, tracer, trace_dir, load, tally):
+    """What a session with ``knob`` leaves to tally, read with its package's
+    own ``load_tally`` / ``tally_trace``."""
+    ctf = [f for f in os.listdir(trace_dir) if f.endswith(".ctf")]
+    if knob in ("aggregate_only", "fidelity"):  # no stream left (pruned, or never written)
+        assert not ctf and tracer.handle.aggregate_path
+        return load(tracer.handle.aggregate_path)
+    if knob == "columnar":
+        assert ctf and all(os.path.exists(os.path.join(trace_dir, f + "col")) for f in ctf)
+        return tally(trace_dir)  # through the sidecars
+    return tracer.final_tally  # the online analyzer's, at stop()
+
+
+@pytest.mark.parametrize(
+    "knob,value",
+    [("online", True), ("aggregate_only", True), ("columnar", True), ("fidelity", "tally-only")],
+)
+def test_offline_trace_knobs_tally_as_the_jax_package(tmp_path_factory, knob, value):
+    """The same serving session under the same knob in both packages: the
+    same framework rows, runtime rows (under each runtime's provider) and
+    kernel names, and, for the knobs that keep the streams, the port's
+    result equals the JAX package's analysis of the port's own streams."""
+    tracers = {}
+    served = _served("mamba2-1.3b", tmp_path_factory, knobs={knob: value}, tracers=tracers)
+    (jd, jtoks), (td, ttoks) = served["jax"], served["torch"]
+    assert ttoks == jtoks
+    jt = _knob_tally(knob, tracers["jax"], jd, jax_load_tally, jax_tally_trace)
+    tt = _knob_tally(knob, tracers["torch"], td, load_tally, tally_trace)
+    for api in ("prefill", "decode_step"):
+        assert tt.apis[("ust_repro", api)].calls == jt.apis[("ust_repro", api)].calls
+    for api in ("dispatch", "compile"):
+        assert tt.apis[("ust_torchrt", api)].calls == jt.apis[("ust_jaxrt", api)].calls
+    assert {a for _, a in tt.device_apis} == {a for _, a in jt.device_apis}
+    if knob in ("online", "columnar"):
+        assert _norm(tt.to_obj()) == _norm(jax_tally_trace(td, use_sidecar=False).to_obj())
 
 
 def test_cpu_device_memory_reads_zero():
