@@ -72,7 +72,22 @@ Phases, each fatal on failure:
      row for the decode step, one dispatch a step, the RG-LRU launches),
      validate, pretty, timeline, index and tally again; the same workload
      under --aggregate-only and under the tally-only rung tallies the same
-     calls per API.
+     calls per API;
+  7. live: full-width h2o-danube-1.8b (8 requests of 100 to 4096 tokens, 16
+     new tokens each, 4 slots, cache_len 4096) serves under a full-mode
+     session with device sampling whose in-process master forwards to an
+     upstream ``iprof serve`` in its own process; a stream-cadence policy
+     ticks in the tracer, an advisory policy between the decode graph's
+     replays.  After 8 decode steps: the engine's live profile has prefill
+     and decode rows, ``iprof top --by-rank`` in its own process shows
+     this rank on the upstream master, and the streamed telemetry's device
+     memory is non-zero.  At stop the upstream composite equals the offline
+     tally and the in-process master's final composite per API in (calls,
+     total_ns); flash_attention ran 24 x prefills; the decode graph was
+     captured once (replays = steps - 1); the tokens equal an untraced
+     session's.  Then tokens/s and the warm replay, live against a
+     default-mode trace without the live service, in turns (live, plain,
+     live, plain), with the consumer thread's CPU share.
 In phases 2-4 the ``[graph]`` phase also serves each full-width model with
 the engine's decode step replaying its CUDA graph, against the eager
 ``decode_step`` on a clone of the cache at every step (tokens identical,
@@ -1510,6 +1525,286 @@ def iprof_phase() -> None:
 
 
 # ---------------------------------------------------------------------------
+# live: traced serving that streams to a local and an upstream master
+# ---------------------------------------------------------------------------
+
+#: the [live] phase's requests: full-width h2o-danube-1.8b, 4 slots
+LIVE_PROMPT_LENS = (100, 512, 1024, 4096, 256, 512, 100, 1024)
+LIVE_CACHE_LEN = 4096
+LIVE_MID_STEPS = 8  # decode steps before the mid-session readings
+LIVE_SUBPROCESS_S = 240  # each iprof subprocess's own time limit
+LIVE_WAIT_S = 30.0  # each wait for the masters to catch up
+
+
+def _wait(pred, what: str, timeout_s: float = LIVE_WAIT_S) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not pred():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"[live] {what}: not reached in {timeout_s} s")
+        time.sleep(0.02)
+
+
+def _iprof_env() -> dict:
+    return dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+
+
+def _start_upstream_master():
+    """``iprof serve --port 0`` in its own process; (process, its address)
+    once it prints where it listens."""
+    import select
+
+    cmd = [sys.executable, "-m", "repro_torch.core.iprof", "serve", "--port", "0", "--duration",
+           str(4 * LIVE_SUBPROCESS_S)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env=_iprof_env(), cwd=ROOT)
+    deadline = time.monotonic() + LIVE_SUBPROCESS_S
+    seen = []
+    while time.monotonic() < deadline and proc.poll() is None:
+        if not select.select([proc.stdout], [], [], 1.0)[0]:
+            continue
+        line = proc.stdout.readline()
+        seen.append(line)
+        m = re.search(r"listening on 127\.0\.0\.1:(\d+)", line)
+        if m:
+            print(f"[live] upstream master: {line.strip()}")
+            return proc, f"127.0.0.1:{m.group(1)}"
+    proc.kill()
+    proc.wait(timeout=30)
+    raise AssertionError(f"[live] iprof serve did not start (rc {proc.returncode}): {''.join(seen)[-2000:]}")
+
+
+def _stop_upstream_master(proc) -> str:
+    """Interrupt ``iprof serve`` as a user's ^C does; its stop line."""
+    import signal
+
+    proc.send_signal(signal.SIGINT)
+    out, _ = proc.communicate(timeout=LIVE_SUBPROCESS_S)
+    stop = [line for line in out.splitlines() if "master stopped" in line]
+    if proc.returncode != 0 or not stop:
+        raise AssertionError(f"[live] iprof serve exited {proc.returncode}: {out[-2000:]}")
+    return stop[0].strip()
+
+
+def _thread_cpu_s(thread) -> float:
+    """CPU seconds (user + system) a thread of this process has run."""
+    with open(f"/proc/self/task/{thread.native_id}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def _decode_calls(t) -> int:
+    st = None if t is None else t.apis.get(("ust_repro", "decode_step"))
+    return 0 if st is None else st.calls
+
+
+def _totals(t) -> dict:
+    return {**{k: (s.calls, s.total_ns) for k, s in t.apis.items()},
+            **{("device",) + k: (s.calls, s.total_ns) for k, s in t.device_apis.items()}}
+
+
+def _live_config(out_dir: str, upstream: str):
+    from repro_torch.core import StreamCadencePolicy, TraceConfig
+
+    # the cadence policy turns no fidelity knob, so the live composite
+    # stays the offline tally exactly
+    return TraceConfig(out_dir=out_dir, mode="full", sample=True, serve_port=0, stream_to=upstream,
+                       adaptive=[StreamCadencePolicy("ust_repro", "decode_step", fast_s=0.1, slow_s=0.5)])
+
+
+def _live_engine(model, params, prompts):
+    from repro_torch.core import AdaptiveController, ThresholdAdvisoryPolicy
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    # an advisory policy, ticked between the decode graph's replays (period
+    # 0: every step); it narrates and turns no knob
+    ctrl = AdaptiveController([ThresholdAdvisoryPolicy("ust_repro", "prefill", high=0.5, low=0.1)],
+                              period_s=0.0)
+    eng = ServeEngine(model, params, ServeConfig(batch_slots=4, cache_len=LIVE_CACHE_LEN,
+                                                 max_new_tokens=NEW_TOKENS), adaptive=ctrl)
+    reqs = [eng.submit(p) for p in prompts]
+    return eng, reqs, ctrl
+
+
+def _replay_ms(eng) -> tuple:
+    """(ms to completion, host enqueue ms) of a warm replay of the engine's
+    decode graph, medians of 5."""
+    batch = {"token": eng._tok}
+    host, done_ms = host_vs_device(lambda: eng.decode_fn(eng.params, eng.cache, batch))
+    return done_ms, host
+
+
+def _timed_session(model, params, prompts, upstream: str, live: bool) -> tuple:
+    """One session for the tokens/s readings: the live configuration, or a
+    default-mode trace without the live service; (tokens/s, replay ms,
+    replay host ms, the consumer thread's CPU share of the wall time, the
+    traced prefill and decode_step spans' total ms)."""
+    import torch
+
+    from repro_torch.core import TraceConfig, Tracer
+    from repro_torch.core.plugins.tally import tally_trace
+
+    eng, reqs, _ = _live_engine(model, params, prompts)
+    d = tempfile.mkdtemp(prefix="thapi_live_")
+    try:
+        cfg = _live_config(d, upstream) if live else TraceConfig(out_dir=d, mode="default")
+        torch.cuda.synchronize()
+        with Tracer(cfg) as tr:
+            cpu0 = _thread_cpu_s(tr._consumer)
+            t0 = time.perf_counter()
+            eng.run_until_drained()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            share = (_thread_cpu_s(tr._consumer) - cpu0) / wall
+            done_ms, host = _replay_ms(eng)
+        spans = tally_trace(d).apis
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    span_ms = {api: spans[("ust_repro", api)].total_ns / 1e6 for api in ("prefill", "decode_step")}
+    return sum(len(r.out_tokens) for r in reqs) / wall, done_ms, host, share, span_ms
+
+
+def live_phase() -> None:
+    """Full-width h2o-danube-1.8b serves under live tracing: the session's
+    in-process master forwards to an upstream master (``iprof serve`` in
+    its own process); one adaptive policy ticks in the tracer, one between
+    the engine's decode-graph replays.  Mid-session: the engine's live
+    profile, ``iprof top --by-rank`` on the upstream master in its own
+    process, and the streamed device memory.  At stop: the upstream
+    composite equals the offline tally and the in-process master's final
+    composite per API in (calls, total_ns); flash_attention ran 24 x
+    prefills; the decode graph was captured once; the tokens equal an
+    untraced session's.  Then tokens/s and the replay's time, live against
+    a default-mode trace without the live service, in turns."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import StreamClient, Tracer
+    from repro_torch.core.plugins.tally import tally_trace
+    from repro_torch.serve.artifacts import DecodeGraph
+
+    t_phase = time.perf_counter()
+    model, params = init_full_width("h2o-danube-1.8b", "live")
+    L = model.cfg.num_layers
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, model.cfg.vocab_size, size=(S,)) for S in LIVE_PROMPT_LENS]
+    n = len(prompts)
+    card = card_line()
+    upstream_proc, upstream = _start_upstream_master()
+    root = tempfile.mkdtemp(prefix="thapi_live_")
+    try:
+        # the untraced session first: its tokens are the reference
+        plain, plain_reqs, _ = _live_engine(model, params, prompts)
+        plain.run_until_drained()
+        plain_tokens = [r.out_tokens for r in plain_reqs]
+        del plain, plain_reqs  # its cache and graph: the telemetry below reads the live engine's alone
+
+        out = os.path.join(root, "trace")
+        eng, reqs, ctrl = _live_engine(model, params, prompts)
+        if not isinstance(eng.decode_fn, DecodeGraph):
+            raise AssertionError(f"[live] the engine's decode step is {eng.decode_fn!r}, not a DecodeGraph")
+        torch.cuda.synchronize()
+        reset_launches()
+        steps = 0
+        with Tracer(_live_config(out, upstream)) as tr:
+            print(f"[live] session master on {tr.server.addr}, forwarding to {upstream}")
+            while eng.step():
+                steps += 1
+                if steps != LIVE_MID_STEPS:
+                    continue
+                _wait(lambda: _decode_calls(eng.live_tally()) == steps, f"the live tally with {steps} decode steps")
+                live = eng.live_tally()
+                profile = eng.live_profile(top=5)
+                names = {a for _, a in live.device_apis}
+                if not profile or not any(a.startswith("prefill[") for a in names) or not any(
+                        a.startswith("decode_step[") for a in names):
+                    raise AssertionError(f"[live] mid-session live profile: {profile!r}, device rows {names}")
+                print(f"[live] mid-session, after {steps} decode steps, the engine's live_profile(top=5):")
+                print(profile)
+                print(f"[live] mid-session device rows: {sorted(names)}")
+                src = tr._stream_source
+                with StreamClient(upstream) as c:
+                    _wait(lambda: src in c.ranks()[0], f"the upstream master to hold {src}")
+                t0 = time.perf_counter()
+                top = subprocess.run([sys.executable, "-m", "repro_torch.core.iprof", "top", upstream,
+                                      "--iterations", "1", "--no-clear", "--by-rank"], capture_output=True,
+                                     text=True, timeout=LIVE_SUBPROCESS_S, env=_iprof_env(), cwd=ROOT)
+                print(top.stdout, end="")
+                if top.returncode != 0 or src not in top.stdout:
+                    raise AssertionError(f"[live] iprof top exited {top.returncode} without {src}'s row: "
+                                         f"{top.stderr[-2000:]}")
+                print(f"[live] iprof top --by-rank on {upstream}: rc 0, {src}'s row shown "
+                      f"({time.perf_counter() - t0:.1f} s in its own process)")
+                (telem,) = tr.server.telemetry().values()
+                alloc = torch.cuda.memory_allocated()
+                with StreamClient(upstream) as c:
+                    wire = c.ranks()[1].get("telemetry", {}).get(src, {})
+                if not all(t.get("mem_in_use", 0) > 0 and t.get("mem_limit", 0) > 0 for t in (telem, wire)):
+                    raise AssertionError(f"[live] streamed telemetry without device memory: {telem}, upstream {wire}")
+                print(f"[live] streamed telemetry: mem_in_use {telem['mem_in_use']} B, mem_peak "
+                      f"{telem['mem_peak']} B, mem_limit {telem['mem_limit']} B, host_rss {telem['host_rss']} B; "
+                      f"torch.cuda.memory_allocated() {alloc} B at the same moment (the sample is at most "
+                      f"{tr.cfg.sample_period_s} s old); at the upstream master, one forward older: mem_in_use "
+                      f"{wire['mem_in_use']} B; {card}")
+            torch.cuda.synchronize()
+        launches = read_launches()
+        final = tr.server.composite()
+        offline = tally_trace(out)
+        with StreamClient(upstream) as c:
+            _wait(lambda: _totals(c.composite()[0]) == _totals(offline),
+                  "the upstream composite to equal the offline tally")
+            upstream_t, meta = c.composite()
+        tokens = [r.out_tokens for r in reqs]
+        g = eng.decode_fn
+        prefills = offline.apis[("ust_repro", "prefill")].calls
+        checks = {
+            "upstream composite == offline tally": _totals(upstream_t) == _totals(offline),
+            "in-process master's final composite == offline tally": _totals(final) == _totals(offline),
+            f"flash_attention launches == {L} x {prefills} prefills":
+                launches == {"ssd_scan": 0, "rglru_scan": 0, "flash_attention": L * prefills} and prefills == n,
+            f"decode graph: one capture, {g.replays} replays == {steps} steps - 1": g.replays == steps - 1,
+            "engine ticks == steps - 1": ctrl.ticks == steps - 1,
+            "tokens == the untraced session's": tokens == plain_tokens,
+            "every request got its tokens": all(len(t) == NEW_TOKENS for t in tokens),
+        }
+        for what, ok in checks.items():
+            print(f"[live] {what}: {'ok' if ok else 'FAILED'}")
+        print(f"[live] {len(offline.apis) + len(offline.device_apis)} rows, "
+              f"{sum(s.calls for s in offline.apis.values())} host calls; upstream holds {meta['sources']} "
+              f"source(s); launches {launches}{launch_detail()}")
+        if not all(checks.values()):
+            raise AssertionError("[live] a gate above failed")
+        st = tr.server.stats()
+        fwd = tr.server.forwarder
+        print(f"[live] in-process master: {st['snapshots']} snapshots ({st['deltas']} deltas, "
+              f"{st['resyncs']} resyncs); its forwarder pushed {fwd.pushed} frames ({fwd.full_frames} full, "
+              f"{fwd.delta_frames} delta), {fwd.bytes_sent} bytes, dropped {fwd.dropped}; the session handle "
+              f"streamed={tr.handle.streamed} stream_dropped={tr.handle.stream_dropped}; {card}")
+        for a in tr.adaptive.actions:
+            print(f"[live] tracer controller: {a}")
+        for a in ctrl.actions:
+            print(f"[live] engine controller: {a}")
+        print(f"[live] knob turns: tracer {len(tr.adaptive.actions)} in {tr.adaptive.ticks} windows, engine "
+              f"{len(ctrl.actions)} in {ctrl.ticks} ticks; {card}")
+
+        # tokens/s and the warm replay, live against a default-mode trace
+        # without the live service, in turns
+        for live in (True, False, True, False):
+            tps, done_ms, host, share, span_ms = _timed_session(model, params, prompts, upstream, live)
+            what = "live (full, sample, both masters, adaptive)" if live else "default, no live service"
+            print(f"[live] session {what}: {tps:.2f} tokens/s; the {n} prefill spans {span_ms['prefill']:.1f} ms, "
+                  f"the decode_step spans {span_ms['decode_step']:.1f} ms in all; warm decode replay "
+                  f"{done_ms:.3f} ms to completion, host enqueue {host:.3f} ms (median of 5, inside the "
+                  f"session); consumer thread CPU {share:.3f} of the wall time; {card}")
+        print(f"[live] upstream {_stop_upstream_master(upstream_proc)}; {card}")
+        print(f"[live] phase: {time.perf_counter() - t_phase:.1f} s; {card}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if upstream_proc.poll() is None:  # a gate failed before the master's stop
+            upstream_proc.kill()
+            upstream_proc.wait(timeout=30)
+
+
+# ---------------------------------------------------------------------------
 # The full-mode polling fence, and the command-line entry point
 # ---------------------------------------------------------------------------
 
@@ -1645,6 +1940,7 @@ def main(argv=()) -> int:
     check_full_mode_fence()
     serve_launcher()
     iprof_phase()
+    live_phase()
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if not k["launches"]:

@@ -3,10 +3,27 @@
     from repro_torch.core import TraceConfig, Tracer, trace_session   # collection
     from repro_torch.core import TracedStep, kernel_span              # interception
     from repro_torch.core import traced_device_put, traced_device_get # §1.1 memcpy
+    from repro_torch.core import MasterServer, ServeOptions, StreamClient    # streaming
+    from repro_torch.core import AdaptiveController, WidenSamplingPolicy     # §6 adaptive
+    from repro_torch.core import ClusterAdaptiveController, StragglerRankPolicy  # cluster scope
     from repro_torch.core.plugins.tally import tally_trace, render    # analysis
-    python -m repro_torch.core.iprof run|tally|index|pretty|timeline|validate|combine
+    python -m repro_torch.core.iprof run|tally|index|pretty|timeline|validate|combine|serve|top
 """
 
+from .adaptive import (  # noqa: F401
+    AdaptiveAction,
+    AdaptiveController,
+    AdaptivePolicy,
+    ClusterAdaptiveController,
+    ClusterPolicy,
+    RankImbalanceAdvisoryPolicy,
+    RingPressurePolicy,
+    SickHostPolicy,
+    StragglerRankPolicy,
+    StreamCadencePolicy,
+    ThresholdAdvisoryPolicy,
+    WidenSamplingPolicy,
+)
 from .api_model import (  # noqa: F401
     TraceModel,
     builtin_models,
@@ -21,5 +38,17 @@ from .interception import (  # noqa: F401
     record_alloc,
     traced_device_get,
     traced_device_put,
+)
+from .stream import (  # noqa: F401
+    MasterServer,
+    ServeOptions,
+    ServerRejected,
+    SnapshotStreamer,
+    StreamClient,
+    live_snapshot,
+    query_composite,
+    query_groups,
+    query_ranks,
+    subscribe_composites,
 )
 from .tracer import TraceConfig, TraceHandle, Tracer, trace_session  # noqa: F401

@@ -13,10 +13,8 @@ Usage:
     python -m repro_torch.core.iprof timeline /tmp/t -o timeline.json
     python -m repro_torch.core.iprof validate /tmp/t
     python -m repro_torch.core.iprof combine  /tmp/agg_root   # §3.7 batch global master
-
-``serve``, ``top``, ``run --stream-to`` and ``run --serve-port`` need the
-streaming masters, which are ported with live tracing (ROADMAP.md, item 2):
-they raise ``NotImplementedError``.
+    python -m repro_torch.core.iprof serve --port 9000        # streaming master (§3.7+§6)
+    python -m repro_torch.core.iprof top   127.0.0.1:9000 [--live] [--by-rank]  # live composite view
 """
 
 from __future__ import annotations
@@ -24,6 +22,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import sys
+import time
 from typing import List, Optional
 
 from .aggregate import combine_aggregates, find_aggregates
@@ -50,12 +49,17 @@ def _run(args) -> int:
         ranks=None if args.ranks is None else [int(r) for r in args.ranks.split(",")],
         online=args.online,
         stream_to=args.stream_to,
+        stream_period_s=args.stream_period,
+        stream_delta=not args.no_stream_delta,
+        stream_resync_every=args.stream_resync_every,
         serve_port=args.serve_port,
         ring_reserve=not args.no_ring_reserve,
         columnar=args.columnar,
         fidelity=args.fidelity,
         sampling_interval=args.sampling_interval,
         sampling_seed=args.sampling_seed,
+        stream_token=args.token,
+        stream_tls_ca=args.tls_ca,
     )
     old_argv = sys.argv
     sys.argv = [target] + list(args.args)
@@ -75,6 +79,8 @@ def _run(args) -> int:
             line += f" (1/{cfg.sampling_interval} systematic, tallies estimated)"
     if h.aggregate_path:
         line += f" aggregate={h.aggregate_path}"
+    if args.stream_to:
+        line += f" streamed={h.streamed} stream_dropped={h.stream_dropped}"
     print(line)
     return 0
 
@@ -131,12 +137,247 @@ def _validate(args) -> int:
     return 0 if not any(f.severity == "error" for f in findings) else 2
 
 
-def _live(args) -> int:
-    """``serve`` and ``top`` need the streaming masters (``core/stream.py``)."""
-    raise NotImplementedError(
-        f"iprof {args.cmd} is ported in a later slice "
-        "(ROADMAP.md, modules to port: item 2, live tracing)"
+def _parse_tokens(specs) -> Optional[dict]:
+    """``--token TOK[=TENANT]`` (repeatable) → {token: tenant} or None."""
+    if not specs:
+        return None
+    tokens = {}
+    for spec in specs:
+        tok, sep, tenant = spec.partition("=")
+        if not tok:
+            raise ValueError(f"bad --token {spec!r}: empty token")
+        tokens[tok] = tenant if sep and tenant else "default"
+    return tokens
+
+
+def _serve(args) -> int:
+    """Run a streaming master (local when --forward-to, else global)."""
+    from .stream import MasterServer, ServeOptions
+
+    rollup = args.rollup_groups
+    if rollup is not None:
+        if rollup.isdigit() and int(rollup) > 0:
+            rollup = int(rollup)
+        elif rollup != "host":
+            print(
+                f"[iprof] bad --rollup-groups {rollup!r}: want 'host' or a "
+                "positive integer bucket size",
+                file=sys.stderr,
+            )
+            return 2
+    try:
+        opts = ServeOptions(
+            fanout=args.fanout,
+            forward_ranks=not args.no_forward_ranks,
+            rollup_groups=rollup,
+            tls_cert=args.tls_cert,
+            tls_key=args.tls_key,
+            tls_ca=args.tls_ca,
+            auth_tokens=_parse_tokens(args.token),
+            max_sources=args.max_sources,
+            max_tally_rows=args.max_tally_rows,
+            max_subscribers=args.max_subscribers,
+            forward_token=args.forward_token,
+            forward_tls_ca=args.forward_tls_ca,
+            source_ttl_s=args.source_ttl,
+        )
+    except ValueError as e:
+        print(f"[iprof] bad serving options: {e}", file=sys.stderr)
+        return 2
+    try:
+        m = MasterServer(
+            port=args.port,
+            host=args.bind,
+            forward_to=args.forward_to,
+            forward_period_s=args.forward_period,
+            options=opts,
+        ).start()
+    except OSError as e:
+        # covers bind errors and ssl.SSLError loading a bad cert/key pair
+        print(f"[iprof] cannot start master on {args.bind}:{args.port}: {e}", file=sys.stderr)
+        return 1
+    role = f"local master → {args.forward_to}" if args.forward_to else "global master"
+    hardened = []
+    if opts.tls_cert:
+        hardened.append("tls")
+    if opts.auth_required:
+        hardened.append(f"auth[{len(opts.auth_tokens)} token(s)]")
+    suffix = f" ({', '.join(hardened)})" if hardened else ""
+    print(f"[iprof] {role} listening on {m.addr}{suffix}", flush=True)
+    try:
+        if args.duration is not None:
+            time.sleep(args.duration)
+        else:
+            while True:
+                time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        m.stop()
+        st = m.stats()
+        line = (
+            f"[iprof] master stopped: {st['sources']} sources, "
+            f"{st['snapshots']} snapshots ({st['deltas']} deltas, "
+            f"{st['resyncs']} resyncs), {st['queries']} queries"
+        )
+        rejects = (
+            st["auth_failures"]
+            + st["tls_failures"]
+            + st["quota_src_rejects"]
+            + st["quota_row_rejects"]
+            + st["quota_sub_rejects"]
+        )
+        if rejects:
+            line += (
+                f"; rejects: {st['auth_failures']} auth, {st['tls_failures']} tls, "
+                f"{st['quota_src_rejects']}/{st['quota_row_rejects']}/"
+                f"{st['quota_sub_rejects']} quota(src/row/sub), "
+                f"{st['sub_evictions']} slow-subscriber evictions"
+            )
+        if st.get("fence_rejects") or st.get("source_gc"):
+            line += (
+                f"; elastic: {st.get('fence_rejects', 0)} fenced frames, "
+                f"{st.get('source_gc', 0)} sources GC'd"
+            )
+        print(line)
+    return 0
+
+
+def _render_composite(args, t, meta, ranks=None, groups=None) -> None:
+    """One `iprof top` refresh: header line + tally table(s)."""
+    if not args.no_clear:
+        print("\x1b[2J\x1b[H", end="")
+    age = max(0.0, time.time() - meta["updated"]) if meta.get("updated") else 0.0
+    print(
+        f"[iprof top] {args.addr} | {meta.get('sources', 0)} sources | "
+        f"{meta.get('snapshots', 0)} snapshots | updated {age:.1f}s ago"
     )
+    print(tally_plugin.render(t, top=args.top, device=False))
+    if args.device or t.device_apis:
+        print("\n-- device --")
+        print(tally_plugin.render(t, top=args.top, device=True))
+    if ranks is not None:
+        print("\n-- ranks --")
+        print(
+            tally_plugin.render_by_rank(
+                ranks,
+                top=args.top,
+                device=args.device,
+                incarnations=meta.get("incarnations"),
+                retired=meta.get("retired"),
+            )
+        )
+    if groups is not None:
+        print("\n-- groups --")
+        print(
+            tally_plugin.render_by_rank(
+                groups, top=args.top, device=args.device, label="Group"
+            )
+        )
+
+
+def _top_live(args, client_kw) -> int:
+    """``--live``: hold a subscription open, rendering pushed composites.
+
+    Survives master restarts: on disconnect after a successful attach the
+    loop reconnects with capped exponential backoff (starting at
+    min(1s, --interval), doubling to --reconnect-max-wait) and re-subscribes
+    on the fresh connection.  ``--no-reconnect`` restores one-shot semantics;
+    a first connect that never succeeds is still rc-1 "unreachable".
+    """
+    from .stream import ProtocolError, ServerRejected, StreamClient
+
+    shown = 0
+    ever_connected = False
+    wait = min(1.0, max(args.interval, 0.05))
+    while True:
+        try:
+            with StreamClient(args.addr, timeout_s=args.timeout, **client_kw) as c:
+                ever_connected = True
+                for t, meta in c.subscribe(period_s=args.interval, by_rank=args.by_rank):
+                    wait = min(1.0, max(args.interval, 0.05))  # healthy: reset backoff
+                    _render_composite(args, t, meta, ranks=meta.get("ranks"))
+                    shown += 1
+                    if args.iterations is not None and shown >= args.iterations:
+                        return 0
+            # generator exhausted: master closed the stream cleanly
+        except ServerRejected as e:
+            print(f"[iprof] master at {args.addr} rejected us: {e}", file=sys.stderr)
+            return 1
+        except (OSError, ProtocolError) as e:
+            if not ever_connected:
+                print(f"[iprof] master at {args.addr} unreachable: {e}", file=sys.stderr)
+                return 1
+            if args.no_reconnect:
+                print(f"[iprof] master at {args.addr} lost: {e}", file=sys.stderr)
+                return 1
+        if args.no_reconnect:
+            return 0
+        print(
+            f"[iprof] lost master at {args.addr}; retrying in {wait:.1f}s",
+            file=sys.stderr,
+        )
+        time.sleep(wait)
+        wait = min(wait * 2, args.reconnect_max_wait)
+
+
+def _top(args) -> int:
+    """Attach to a master; render the live composite, refreshing.
+
+    Default mode polls one reused query connection per refresh; ``--live``
+    subscribes for pushed composites (the v2 ``subscribe`` frame) and
+    reconnects across master restarts.  ``--by-rank`` appends the per-rank
+    breakdown table — the straggler/skew view.
+    """
+    from .aggregate import merge_tallies
+    from .stream import ProtocolError, ServerRejected, StreamClient
+
+    if args.live and args.by_group:
+        print(
+            "[iprof] --by-group is poll-only; ignoring --live for this view",
+            file=sys.stderr,
+        )
+    client_kw = {"token": args.token, "tls_ca": args.tls_ca}
+    try:
+        if args.live and not args.by_group:  # group view is poll-only
+            return _top_live(args, client_kw)
+        with StreamClient(args.addr, timeout_s=args.timeout, **client_kw) as c:
+            i = 0
+            while args.iterations is None or i < args.iterations:
+                if i:
+                    time.sleep(args.interval)
+                i += 1
+                if args.by_group:
+                    groups, meta = c.groups()
+                    if not meta.get("rollup"):
+                        print(
+                            f"[iprof] master at {args.addr} runs without "
+                            "--rollup-groups; no group breakdown to show",
+                            file=sys.stderr,
+                        )
+                        return 1
+                    copies = [tally_plugin.Tally().merge(t) for t in groups.values()]
+                    t = merge_tallies(copies)[0] if copies else tally_plugin.Tally()
+                    _render_composite(args, t, meta, groups=groups)
+                elif args.by_rank:
+                    ranks, meta = c.ranks()
+                    # merge_tallies folds in place: merge copies, keep ranks intact
+                    copies = [tally_plugin.Tally().merge(t) for t in ranks.values()]
+                    t = merge_tallies(copies)[0] if copies else tally_plugin.Tally()
+                    _render_composite(args, t, meta, ranks=ranks)
+                else:
+                    t, meta = c.composite()
+                    _render_composite(args, t, meta)
+        return 0
+    except ValueError:
+        print(f"[iprof] bad master address {args.addr!r} (want host:port)", file=sys.stderr)
+        return 2
+    except ServerRejected as e:
+        print(f"[iprof] master at {args.addr} rejected us: {e}", file=sys.stderr)
+        return 1
+    except (OSError, ProtocolError) as e:
+        print(f"[iprof] master at {args.addr} unreachable: {e}", file=sys.stderr)
+        return 1
 
 
 def _combine(args) -> int:
@@ -185,15 +426,36 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--ranks", default=None, help="comma-separated ranks to trace (§3.2)")
     r.add_argument("--online", action="store_true", help="live tally on the consumer (§6)")
     r.add_argument(
-        "--stream-to",
+        "--stream-to", default=None, help="push live snapshots to a master at host:port"
+    )
+    r.add_argument("--stream-period", type=float, default=0.25)
+    r.add_argument(
+        "--no-stream-delta",
+        action="store_true",
+        help="disable v2 delta frames: push full snapshots every period",
+    )
+    r.add_argument(
+        "--stream-resync-every",
+        type=int,
+        default=32,
+        help="full-snapshot resync frame every N delta pushes",
+    )
+    r.add_argument(
+        "--token",
         default=None,
-        help="push live snapshots to a master at host:port (not ported yet)",
+        help="auth token sent in the stream hello (masters started with --token)",
+    )
+    r.add_argument(
+        "--tls-ca",
+        default=None,
+        metavar="PEM",
+        help="connect to the master over TLS, trusting this CA/cert bundle",
     )
     r.add_argument(
         "--serve-port",
         type=int,
         default=None,
-        help="serve this process's live tally on a local master port (not ported yet)",
+        help="serve this process's live tally on a local master port (iprof top attaches)",
     )
     r.add_argument(
         "--columnar",
@@ -261,19 +523,149 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--fanout", type=int, default=32)
     c.set_defaults(fn=_combine)
 
-    for name, what in (
-        ("serve", "run a streaming aggregation master (§3.7+§6; not ported yet)"),
-        ("top", "attach to a master and render the live composite (not ported yet)"),
-    ):
-        sub.add_parser(name, help=what).set_defaults(fn=_live)
+    s = sub.add_parser("serve", help="run a streaming aggregation master (§3.7+§6)")
+    s.add_argument("--port", type=int, default=9000, help="0 picks an ephemeral port")
+    s.add_argument("--bind", default="127.0.0.1")
+    s.add_argument(
+        "--forward-to", default=None, help="parent master host:port (makes this a local master)"
+    )
+    s.add_argument("--forward-period", type=float, default=0.5)
+    s.add_argument("--fanout", type=int, default=32)
+    s.add_argument(
+        "--duration", type=float, default=None, help="serve for N seconds then exit (default: forever)"
+    )
+    s.add_argument(
+        "--no-forward-ranks",
+        action="store_true",
+        help="forward one merged composite upstream instead of the per-rank breakdown",
+    )
+    s.add_argument(
+        "--rollup-groups",
+        default=None,
+        metavar="HOST|N",
+        help="aggregate sources into node-level rollup groups on ingest: "
+        "'host' groups by hostname, an integer N buckets ranks N-at-a-time "
+        "(pre-aggregation for >1k-rank trees; query with iprof top --by-group)",
+    )
+    s.add_argument(
+        "--tls-cert",
+        default=None,
+        metavar="PEM",
+        help="serve over TLS with this certificate (chain) file",
+    )
+    s.add_argument(
+        "--tls-key",
+        default=None,
+        metavar="PEM",
+        help="private key for --tls-cert (default: key is in the cert file)",
+    )
+    s.add_argument(
+        "--tls-ca",
+        default=None,
+        metavar="PEM",
+        help="with --tls-cert: require and verify client certificates against "
+        "this CA (mutual TLS); without it, also used as the CA for "
+        "--forward-to upstream TLS",
+    )
+    s.add_argument(
+        "--token",
+        action="append",
+        default=None,
+        metavar="TOK[=TENANT]",
+        help="require hello auth; repeatable — each token maps its clients "
+        "into TENANT's namespace (default tenant when omitted)",
+    )
+    s.add_argument(
+        "--max-sources",
+        type=int,
+        default=0,
+        help="per-tenant source quota (0 = unlimited)",
+    )
+    s.add_argument(
+        "--max-tally-rows",
+        type=int,
+        default=0,
+        help="per-source tally-row quota, host+device (0 = unlimited)",
+    )
+    s.add_argument(
+        "--max-subscribers",
+        type=int,
+        default=0,
+        help="per-tenant live-subscriber quota (0 = unlimited)",
+    )
+    s.add_argument(
+        "--source-ttl",
+        type=float,
+        default=0.0,
+        metavar="SECONDS",
+        help="garbage-collect sources with no frames for this long "
+        "(0 = keep forever; evicted/dead ranks then linger in composites)",
+    )
+    s.add_argument(
+        "--forward-token",
+        default=None,
+        help="auth token for the --forward-to upstream master",
+    )
+    s.add_argument(
+        "--forward-tls-ca",
+        default=None,
+        metavar="PEM",
+        help="connect to --forward-to over TLS, trusting this CA/cert bundle",
+    )
+    s.set_defaults(fn=_serve)
+
+    tp = sub.add_parser("top", help="attach to a master and render the live composite")
+    tp.add_argument("addr", help="master host:port")
+    tp.add_argument(
+        "--live",
+        action="store_true",
+        help="subscribe for pushed composite updates instead of polling queries",
+    )
+    tp.add_argument(
+        "--by-rank",
+        action="store_true",
+        help="append the per-rank breakdown table (straggler/skew view)",
+    )
+    tp.add_argument(
+        "--by-group",
+        action="store_true",
+        help="poll the rollup-group breakdown instead (masters started with "
+        "--rollup-groups); node-granularity view of >1k-rank trees",
+    )
+    tp.add_argument("--interval", type=float, default=1.0)
+    tp.add_argument(
+        "--iterations", type=int, default=None, help="refresh N times then exit (default: forever)"
+    )
+    tp.add_argument("--timeout", type=float, default=3.0)
+    tp.add_argument("--top", type=int, default=None)
+    tp.add_argument("--device", action="store_true")
+    tp.add_argument("--no-clear", action="store_true", help="don't clear the screen between refreshes")
+    tp.add_argument(
+        "--token", default=None, help="auth token (masters started with --token)"
+    )
+    tp.add_argument(
+        "--tls-ca",
+        default=None,
+        metavar="PEM",
+        help="connect over TLS, trusting this CA/cert bundle",
+    )
+    tp.add_argument(
+        "--no-reconnect",
+        action="store_true",
+        help="--live: exit when the master goes away instead of reconnecting",
+    )
+    tp.add_argument(
+        "--reconnect-max-wait",
+        type=float,
+        default=15.0,
+        help="--live: cap for the exponential reconnect backoff (seconds)",
+    )
+    tp.set_defaults(fn=_top)
     return p
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    parser = build_parser()
-    args, rest = parser.parse_known_args(argv)
-    if rest and args.fn is not _live:  # serve/top take their options unparsed
-        parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    args = build_parser().parse_args(argv)
     return args.fn(args)
 
 

@@ -5,7 +5,7 @@ THAPI's sampling framework is a daemon that polls Level-Zero Sysman counters
 (default 50 ms) and streams them into the LTTng trace.
 
 Our heterogeneous devices are PyTorch devices.  On a CUDA card,
-``torch.cuda.memory_stats()`` and ``torch.cuda.mem_get_info()`` expose the
+``torch.cuda.memory_stats()`` and the device's properties expose the
 caching allocator's occupancy and the card's capacity; a CPU device has no
 device memory and reports zeros, leaving host counters only — the daemon
 architecture (thread + period + counter events into the trace) is identical.
@@ -43,12 +43,14 @@ def read_device_memory(device=None) -> tuple:
     device = torch.device(device)
     if device.type != "cuda":
         return (0, 0, 0)
+    # the allocator's own counters and the card's capacity from its cached
+    # properties: no CUDA runtime call, so the sampling and consumer threads
+    # may read them while the serving thread captures the decode graph
     stats = torch.cuda.memory_stats(device)
-    _free, total = torch.cuda.mem_get_info(device)
     return (
         int(stats.get("allocated_bytes.all.current", 0)),
         int(stats.get("allocated_bytes.all.peak", 0)),
-        int(total),
+        int(torch.cuda.get_device_properties(device).total_memory),
     )
 
 

@@ -14,10 +14,14 @@ The tracer owns the collection side of the framework:
   * **aggregate-only mode** (§3.7) — for multi-node runs keep only the tally
     aggregate (kilobytes) instead of the full streams;
   * **online analysis** (§6) — a live tally folded on the consumer thread,
-    which the ``tally-only`` fidelity rung uses in place of the streams.
+    which the ``tally-only`` fidelity rung uses in place of the streams;
+  * **live streaming** (§3.7+§6) — the consumer thread pushes the live tally
+    to an upstream master (``stream_to``) and/or an in-process one
+    (``serve_port``), and ticks the adaptive controllers (``adaptive``,
+    ``cluster_adaptive``; see core/stream.py and core/adaptive.py).
 
-The streaming masters and the adaptive and remediation loops are not ported
-yet: setting any of their knobs raises ``NotImplementedError``.
+The remediation loop is not ported yet: setting ``remediation`` raises
+``NotImplementedError``.
 
 Usage (the iprof CLI wraps exactly this):
 
@@ -34,6 +38,7 @@ import os
 import socket
 import sys
 import threading
+import time
 from typing import Dict, Optional, Sequence, Set, Tuple
 
 from . import telemetry as _telemetry
@@ -44,24 +49,6 @@ from .ringbuffer import RingRegistry
 from .tracepoints import FIDELITY_MODES, Tracepoints
 
 MODES = ("minimal", "default", "full")
-
-#: TraceConfig fields whose modules are not ported yet (live streaming and
-#: adaptive control; remediation); each must stay at its "off" value
-_UNPORTED = (
-    "stream_to",
-    "serve_port",
-    "adaptive",
-    "cluster_adaptive",
-    "remediation",
-)
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is ported in a later slice (ROADMAP.md, modules to port: item 2, "
-        "live tracing, for streaming and adaptive control; item 5 for remediation)"
-    )
-
 
 @dataclasses.dataclass
 class TraceConfig:
@@ -89,9 +76,77 @@ class TraceConfig:
     #: §6 future work, implemented: maintain a LIVE tally on the consumer
     #: thread (read via tracer.online.snapshot() mid-run)
     online: bool = False
+    #: §3.7+§6 streaming: push live tally snapshots to a master at
+    #: "host:port" (see core/stream.py). Implies ``online``.
+    stream_to: Optional[str] = None
+    #: snapshot push period; the final snapshot at stop() is always pushed
+    stream_period_s: float = 0.25
+    #: protocol-v2 delta streaming: ship only changed ApiStats entries in
+    #: steady state (full-snapshot resync frames bound drift). Off = every
+    #: push is a full snapshot (v1-compatible wire behavior).
+    stream_delta: bool = True
+    #: force a full-snapshot resync frame every N delta pushes
+    stream_resync_every: int = 32
+    #: run an in-process master on this port (0 = ephemeral) serving this
+    #: rank's live tally — and, via ``stream_to`` on other ranks, theirs too;
+    #: ``iprof top`` attaches here. Implies ``online``.
+    serve_port: Optional[int] = None
+    #: master-tree fanout used when this process is itself a master
+    stream_fanout: int = 32
     #: extra per-event overrides applied after the mode preset, e.g.
     #: {"ust_torchrt:alloc_entry": False}
     event_overrides: Optional[Dict[str, bool]] = None
+    #: §6 adaptive consumer: policies (or a ready AdaptiveController) ticked
+    #: from the consumer thread; they may turn session knobs mid-run from
+    #: live windowed metrics (see core/adaptive.py). Implies ``online``.
+    adaptive: Optional[Sequence] = None
+    #: adaptation window: how often the controller diffs live snapshots
+    adaptive_period_s: float = 0.5
+    #: cluster-scope adaptive control: ClusterPolicy list (or a ready
+    #: ClusterAdaptiveController) fed from the in-process master's per-rank
+    #: map and ticked from the consumer thread; requires ``serve_port``
+    #: (the master IS the per-rank data source). See core/adaptive.py.
+    cluster_adaptive: Optional[Sequence] = None
+    #: cluster adaptation window: how often per-rank maps are diffed
+    cluster_period_s: float = 1.0
+    #: forward per-rank breakdowns (not collapsed composites) when this
+    #: process's in-process master forwards upstream — keeps rank identity
+    #: visible at every level of the aggregation tree
+    stream_ranks: bool = True
+    #: bearer token presented to the ``stream_to`` master (and, for an
+    #: in-process master, forwarded upstream) when the serving tier runs
+    #: with token auth — see core/stream.py ServeOptions.auth_tokens
+    stream_token: Optional[str] = None
+    #: CA bundle path pinning the upstream master's TLS certificate; sets
+    #: the client side of the hardened serving tier (None = plaintext)
+    stream_tls_ca: Optional[str] = None
+    #: initial-connect resilience for the ``stream_to`` push client: retry
+    #: the first connect up to N times with capped-exponential backoff
+    #: (base ``stream_connect_backoff_s``) so ranks that start before the
+    #: master don't drop their early pushes.  0 = fail fast.
+    stream_connect_retries: int = 0
+    stream_connect_backoff_s: float = 0.25
+    #: attach per-rank device telemetry (host RSS, the card's allocator
+    #: figures, memcpy/alloc bandwidth — core/telemetry.py) to every streamed
+    #: snapshot, carried through the per-rank breakdown so cluster policies
+    #: can tell "slow kernel" from "sick host".  Uses the sampling daemon's
+    #: latest sample when ``sample`` is on, else a cheap inline read.
+    stream_telemetry: bool = True
+    #: full serving-tier configuration for the in-process master (TLS
+    #: cert/key, auth tokens, per-tenant quotas, hub queue depth...).  None
+    #: builds one from the stream_* knobs above; when set, it wins over them
+    #: (it IS the knob set) and stream_token/stream_tls_ca are still
+    #: injected as upstream credentials if the options carry none.
+    serve_options: Optional[object] = None
+    #: override the streaming source identity (None = ``default_source(rank)``,
+    #: i.e. "host:pid:rankN").  A replacement process presents its
+    #: predecessor's source id so the master's incarnation fencing can
+    #: supersede the dead process instead of seeing a brand-new rank.
+    stream_source: Optional[str] = None
+    #: incarnation number carried in the streaming ``hello``/frames; masters
+    #: fence frames from lower incarnations of the same source (zombie
+    #: containment).  0 = the original launch.
+    stream_incarnation: int = 0
     #: starting rung of the fidelity ladder (orthogonal to ``mode``, which
     #: selects *what* is traced): "full" | "sampled" | "tally-only" | "off".
     #: Switchable mid-run via Tracer.set_mode / repro_torch.trace.set_mode.
@@ -100,11 +155,7 @@ class TraceConfig:
     sampling_interval: int = 64
     #: seed for the per-thread sampling phase RNG (None = nondeterministic)
     sampling_seed: Optional[int] = None
-    # -- not ported yet: any value but the default raises --------------------
-    stream_to: Optional[str] = None
-    serve_port: Optional[int] = None
-    adaptive: Optional[Sequence] = None
-    cluster_adaptive: Optional[Sequence] = None
+    #: closed-loop remediation is not ported yet: any value but None raises
     remediation: Optional[object] = None
 
     def __post_init__(self):
@@ -116,10 +167,28 @@ class TraceConfig:
             )
         if self.sampling_interval < 1:
             raise ValueError("sampling_interval must be >= 1")
-        for name in _UNPORTED:
-            value = getattr(self, name)
-            if value is not None and value is not False:  # serve_port=0 is a port
-                raise _unported(f"TraceConfig.{name}")
+        if self.remediation is not None:
+            raise NotImplementedError(
+                "TraceConfig.remediation is ported in a later slice (ROADMAP.md, "
+                "modules to port: item 5, distribution and control plane)"
+            )
+        if self.stream_connect_retries < 0:
+            raise ValueError("stream_connect_retries must be >= 0")
+        if self.stream_connect_backoff_s <= 0:
+            raise ValueError("stream_connect_backoff_s must be > 0")
+        if self.stream_incarnation < 0:
+            raise ValueError("stream_incarnation must be >= 0")
+        if self.cluster_adaptive is not None and self.serve_port is None:
+            raise ValueError(
+                "cluster_adaptive requires serve_port: the in-process master "
+                "is the per-rank data source cluster policies read"
+            )
+        if (
+            self.stream_to is not None
+            or self.serve_port is not None
+            or self.adaptive is not None
+        ):
+            self.online = True
 
 
 def events_for_mode(model: TraceModel, mode: str, sample: bool) -> Set[int]:
@@ -181,6 +250,9 @@ class TraceHandle:
     dropped: int
     size_bytes: int
     aggregate_path: Optional[str] = None
+    #: snapshots delivered / undeliverable to the stream_to master
+    streamed: int = 0
+    stream_dropped: int = 0
     #: fidelity rung at stop time (see TraceConfig.fidelity)
     fidelity: str = "full"
 
@@ -210,6 +282,12 @@ class Tracer:
         self._sampler: Optional[_telemetry.TelemetryDaemon] = None
         self._started = False
         self.online = None  # OnlineAnalyzer when cfg.online or on the tally-only rung
+        self.streamer = None  # SnapshotStreamer when cfg.stream_to (and no serve_port)
+        self.server = None  # MasterServer when cfg.serve_port
+        self.adaptive = None  # AdaptiveController when cfg.adaptive
+        self.cluster = None  # ClusterAdaptiveController when cfg.cluster_adaptive
+        self._stream_source = ""
+        self._stream_next = 0.0
         #: rank selected for tracing? (§3.2 selective rank tracing)
         self.selected = cfg.ranks is None or cfg.rank in set(cfg.ranks)
         #: fidelity-ladder state: current rung, rungs visited this session
@@ -312,6 +390,23 @@ class Tracer:
             from .online import OnlineAnalyzer
 
             self.online = OnlineAnalyzer(self.model, hostname=socket.gethostname())
+        if self.cfg.serve_port is not None or self.cfg.stream_to is not None:
+            self._start_streaming()
+        if self.cfg.adaptive is not None:
+            from .adaptive import build_controller
+
+            self.adaptive = build_controller(
+                self.cfg.adaptive, period_s=self.cfg.adaptive_period_s
+            )
+            self.adaptive.attach(self)
+        if self.cfg.cluster_adaptive is not None:
+            from .adaptive import build_cluster_controller
+
+            self.cluster = build_cluster_controller(
+                self.cfg.cluster_adaptive, period_s=self.cfg.cluster_period_s
+            )
+            self.cluster.bind(master=self.server)
+            self.cluster.attach(self)  # advisories land in this rank's trace
         self._stop_evt.clear()
         self._consumer = threading.Thread(
             target=self._consumer_loop, name="thapi-consumer", daemon=True
@@ -326,6 +421,56 @@ class Tracer:
         self._started = True
         _ACTIVE = self
         return self
+
+    def _start_streaming(self) -> None:
+        """The in-process master (``serve_port``; it forwards upstream when
+        ``stream_to`` is also set, so this rank acts as a local master), or
+        the leaf push client (``stream_to`` alone)."""
+        from .stream import (
+            MasterServer,
+            ServeOptions,
+            SnapshotStreamer,
+            client_ssl_context,
+            default_source,
+        )
+
+        cfg = self.cfg
+        self._stream_source = cfg.stream_source or default_source(cfg.rank)
+        if cfg.serve_port is not None:
+            opts = cfg.serve_options
+            if opts is None:
+                opts = ServeOptions(
+                    fanout=cfg.stream_fanout,
+                    forward_delta=cfg.stream_delta,
+                    forward_resync_every=cfg.stream_resync_every,
+                    forward_ranks=cfg.stream_ranks,
+                )
+            # stream_token/stream_tls_ca are upstream credentials: inject
+            # them unless the options already carry their own
+            if cfg.stream_token is not None and opts.forward_token is None:
+                opts = dataclasses.replace(opts, forward_token=cfg.stream_token)
+            if cfg.stream_tls_ca is not None and opts.forward_tls_ca is None:
+                opts = dataclasses.replace(opts, forward_tls_ca=cfg.stream_tls_ca)
+            self.server = MasterServer(
+                port=cfg.serve_port,
+                forward_to=cfg.stream_to,
+                forward_period_s=cfg.stream_period_s,
+                options=opts,
+            ).start()
+        else:
+            self.streamer = SnapshotStreamer(
+                cfg.stream_to,
+                source=self._stream_source,
+                delta=cfg.stream_delta,
+                resync_every=cfg.stream_resync_every,
+                token=cfg.stream_token,
+                ssl_context=(
+                    client_ssl_context(cafile=cfg.stream_tls_ca) if cfg.stream_tls_ca else None
+                ),
+                connect_retries=cfg.stream_connect_retries,
+                connect_backoff_s=cfg.stream_connect_backoff_s,
+                incarnation=cfg.stream_incarnation,
+            )
 
     def stop(self) -> TraceHandle:
         global _ACTIVE
@@ -346,6 +491,11 @@ class Tracer:
             assert self._consumer is not None
             self._consumer.join(timeout=10.0)
             self._drain_once()  # final drain catches post-loop residue
+            self._stream_tick(final=True)  # authoritative last snapshot
+            if self.streamer is not None:
+                self.streamer.close()
+            if self.server is not None:
+                self.server.stop()  # flushes the composite upstream first
             for w in self._writers.values():
                 w.close()
             for key, cw in self._colwriters.items():
@@ -392,6 +542,11 @@ class Tracer:
 
                 agg_path = self._aggregate_path()
                 save_tally(self.final_tally, agg_path)
+            # upstream delivery counters live on the leaf streamer, or on the
+            # in-process master's forwarder when this rank is a local master
+            pusher = self.streamer
+            if pusher is None and self.server is not None:
+                pusher = self.server.forwarder
             self.handle = TraceHandle(
                 trace_dir=self.cfg.out_dir,
                 mode=self.cfg.mode,
@@ -399,6 +554,8 @@ class Tracer:
                 dropped=dropped,
                 size_bytes=trace_size_bytes(self.cfg.out_dir),
                 aggregate_path=agg_path,
+                streamed=pusher.pushed if pusher else 0,
+                stream_dropped=pusher.dropped if pusher else 0,
                 fidelity=self._fidelity,
             )
         finally:
@@ -502,6 +659,77 @@ class Tracer:
     def _consumer_loop(self) -> None:
         while not self._stop_evt.wait(self.cfg.flush_period_s):
             self._drain_once()
+            self._stream_tick()
+            if self.adaptive is not None:
+                self.adaptive.tick()
+            if self.cluster is not None:
+                self.cluster.tick()
+
+    def _stream_tick(self, final: bool = False) -> None:
+        """Push the live tally to the streaming service (§3.7+§6).
+
+        One snapshot feeds both targets: the in-process master (when this
+        rank serves) and the upstream master (when this rank is a leaf).
+        The final push at stop() is unconditional — it carries the
+        authoritative cumulative tally the composite converges on.
+        """
+        if self.online is None or (self.streamer is None and self.server is None):
+            return
+        t = time.monotonic()
+        if not final and t < self._stream_next:
+            return
+        self._stream_next = t + self.cfg.stream_period_s
+        snap = self.online.snapshot()
+        if final and self._modes_used == ["sampled"] and self.cfg.sampling_interval > 1:
+            # the authoritative last push carries the same 1/N estimate the
+            # offline fold (and finish()) produce for a pure-sampled session,
+            # so the live composite converges on the on-disk aggregate
+            snap.scale(self.cfg.sampling_interval)
+        telem = self._telemetry_snapshot() if self.cfg.stream_telemetry else None
+        if self.server is not None:
+            self.server.submit(
+                self._stream_source,
+                snap,
+                telemetry=telem,
+                incarnation=self.cfg.stream_incarnation,
+            )
+        if self.streamer is not None:
+            self.streamer.push(snap, telemetry=telem)
+
+    def _telemetry_snapshot(self) -> Optional[dict]:
+        """This rank's device-telemetry dict for the outgoing frame: on the
+        card, the caching allocator's bytes in use and peak and the card's
+        capacity (``telemetry.read_device_memory``).
+
+        With the sampling daemon on, reuse its latest sample (one reader of
+        the shared gauges).  Before its first sample (a session shorter than
+        one sample period) send the memory figures and host RSS read inline
+        and leave the gauges to the daemon.  Without it, take a cheap inline
+        reading — the gauges' only reader is then this tick, so
+        read-and-reset is safe.
+        """
+        if self._sampler is not None:
+            last = self._sampler.last
+            if last:
+                return dict(last)
+            in_use, peak, limit = _telemetry.read_device_memory()
+            return {
+                "mem_in_use": in_use,
+                "mem_peak": peak,
+                "mem_limit": limit,
+                "host_rss": _telemetry.read_host_rss(),
+            }
+        in_use, peak, limit = _telemetry.read_device_memory()
+        memcpy_bw, alloc_bw = _telemetry.TransferGauge.read_and_reset()
+        return {
+            "mem_in_use": in_use,
+            "mem_peak": peak,
+            "mem_limit": limit,
+            "host_rss": _telemetry.read_host_rss(),
+            "step_rate": _telemetry.StepRateGauge.read_and_reset(),
+            "memcpy_bw": memcpy_bw,
+            "alloc_bw": alloc_bw,
+        }
 
     # -- §3.7 aggregate-only ---------------------------------------------------
     def _aggregate_path(self) -> str:

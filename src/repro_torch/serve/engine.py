@@ -14,6 +14,14 @@ graph (``artifacts.decode_artifacts``), captured at the first step and
 replayed at every later one over the same parameters, cache leaves and
 token buffer, so the engine never rebinds them.  Token tensors are int32,
 as the JAX engine's are.
+
+Adaptive policies (``adaptive=``, ``cluster_adaptive=``) tick between the
+decode step and the token readback, as in the JAX engine: on the card after
+the replay is enqueued and before the host waits for its tokens.  A tick
+reads the live tally, never a tensor, and no knob it turns (tracing mode,
+fidelity, cadence, ``cfg.max_new_tokens``) touches the captured graph, so an
+engine captures its decode step once.  ``live_tally`` / ``live_profile``
+report the surrounding session's live composite mid-run.
 """
 
 from __future__ import annotations
@@ -50,10 +58,34 @@ class Request:
 
 
 class ServeEngine:
-    def __init__(self, model: Model, params: dict, cfg: ServeConfig):
+    def __init__(
+        self,
+        model: Model,
+        params: dict,
+        cfg: ServeConfig,
+        adaptive=None,
+        cluster_adaptive=None,
+        cluster_credentials: Optional[dict] = None,
+    ):
         self.model = model
         self.cfg = cfg
         self.params = params
+        # §6 adaptive consumer: a list of AdaptivePolicy (or a ready
+        # AdaptiveController) ticked between decode steps with ctx.engine
+        # bound, so policies can reach serving knobs (cfg.max_new_tokens,
+        # queue depth) next to the tracing ones.  The controller attaches
+        # itself to the active session on its first tick, so the Tracer may
+        # start before or after the engine is built.  cluster_adaptive:
+        # ClusterPolicy list (or ready controller) ticked the same way; it
+        # reads the per-rank map of the session's in-process master
+        # (TraceConfig.serve_port), or the master that cluster_credentials
+        # ({"addr": ..., "token": ..., "tls_ca": ...}) name.
+        from repro_torch.core.adaptive import build_cluster_controller, build_controller
+
+        self.adaptive = build_controller(adaptive)
+        self.cluster_adaptive = build_cluster_controller(
+            cluster_adaptive, **(cluster_credentials or {})
+        )
         self.device = params["embed"]["tok"].device
         self._rid = itertools.count()
         B = cfg.batch_slots
@@ -154,6 +186,12 @@ class ServeEngine:
             nxt = torch.argmax(logits[:, 0, : self.model.cfg.vocab_size], dim=-1)
             sp.outs["tokens_out"] = len(active)
         self._tok.copy_(nxt)
+        # the ticks read the live tally, not tensors: their host time overlaps
+        # the step's device time, before the token readback waits for it
+        if self.adaptive is not None:
+            self.adaptive.tick(engine=self)
+        if self.cluster_adaptive is not None:
+            self.cluster_adaptive.tick()
         host = nxt.cpu().numpy()
         for i in active:
             r = self.slots[i]
@@ -169,3 +207,24 @@ class ServeEngine:
             if not self.step() and not self.queue:
                 break
         return self.completed
+
+    # -- live profile (§3.7+§6 streaming service) ------------------------------
+    def live_tally(self):
+        """Live tally of the surrounding tracing session, or None.
+
+        Requires the engine to run under ``Tracer(TraceConfig(online=True))``
+        (or any streaming knob, which implies it).  With ``serve_port`` set
+        the session runs an in-process master, so this is the *global*
+        composite — the prefill/decode spans of this server merged with
+        every rank streaming into it.
+        """
+        from repro_torch.core.stream import live_snapshot
+
+        return live_snapshot()
+
+    def live_profile(self, top: Optional[int] = None) -> Optional[str]:
+        """Rendered live tally (the §4.3 table) for /profile-style endpoints."""
+        from repro_torch.core.plugins.tally import render
+
+        t = self.live_tally()
+        return None if t is None else render(t, top=top)

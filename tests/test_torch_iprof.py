@@ -6,8 +6,9 @@ launcher's own trace off, so the session is iprof's), then ``tally``,
 ``index``, ``pretty``, ``timeline``, ``validate`` and ``combine`` read what
 it wrote.  The aggregate-only and tally-only runs of the same workload
 tally the same calls as the offline tally; the JAX package's analysis of
-the port's trace agrees with the port's.  The commands that need the
-streaming masters raise.
+the port's trace agrees with the port's.  The live commands work:
+``serve``, ``top`` against a master, and ``run --stream-to`` /
+``--serve-port``, whose streamed composite equals the trace's tally.
 """
 
 import json
@@ -121,12 +122,47 @@ def test_aggregate_runs_tally_the_offline_calls_and_combine(run_dir, tmp_path, c
 
 
 @pytest.mark.parametrize("argv", [
-    ["serve", "--port", "0"],
-    ["top", "127.0.0.1:1"],
-    ["run", "-o", "OUT", "--stream-to", "127.0.0.1:1", "--", *TARGET],
-    ["run", "-o", "OUT", "--serve-port", "0", "--", *TARGET],
+    ["serve", "--port", "0", "--duration", "0.2"],
+    ["top", "ADDR", "--iterations", "1", "--no-clear"],
+    ["run", "-o", "OUT", "--stream-to", "ADDR", "--stream-period", "0.05", "--", *TARGET],
+    ["run", "-o", "OUT", "--serve-port", "0", "--stream-period", "0.05", "--", *TARGET],
 ])
-def test_live_commands_raise(tmp_path, argv):
-    argv = [str(tmp_path / "t") if a == "OUT" else a for a in argv]
-    with pytest.raises(NotImplementedError, match="item 2, live tracing"):
-        iprof(argv)
+def test_live_commands_raise(run_dir, tmp_path, argv, monkeypatch, capsys):
+    """Each live command works: ``serve`` starts a master and stops it after
+    its duration; ``top`` reads a master the test started; ``run
+    --stream-to`` / ``--serve-port`` leave a trace whose offline tally
+    equals the composite streamed to the master, per API in calls and time."""
+    from repro_torch.core import stream
+
+    out = str(tmp_path / "t")
+    finals = []  # each master's composite as it stops
+    stop = stream.MasterServer.stop
+
+    def recording_stop(self):
+        finals.append(self.composite())
+        return stop(self)
+
+    monkeypatch.setattr(stream.MasterServer, "stop", recording_stop)
+    with stream.MasterServer(port=0) as m:
+        if argv[0] == "top":
+            m.submit("host:1:rank0", tally_trace(run_dir))
+        argv = [out if a == "OUT" else m.addr if a == "ADDR" else a for a in argv]
+        capsys.readouterr()
+        assert iprof(argv) == 0
+        text = capsys.readouterr().out
+    if argv[0] == "serve":
+        assert "global master listening on 127.0.0.1:" in text and "master stopped: 0 sources" in text
+    elif argv[0] == "top":
+        assert "1 sources" in text and "decode_step" in text
+    elif "--stream-to" in argv:
+        assert "streamed=" in text and "stream_dropped=0" in text
+        assert _totals(m.composite()) == _totals(tally_trace(out))
+    else:  # the run's own in-process master stopped first
+        assert _totals(finals[0]) == _totals(tally_trace(out))
+
+
+def _totals(t) -> dict:
+    return {
+        **{k: (s.calls, s.total_ns) for k, s in t.apis.items()},
+        **{("device",) + k: (s.calls, s.total_ns) for k, s in t.device_apis.items()},
+    }

@@ -7,7 +7,8 @@ bytes, and the donated decode cache's bytes); the decode step writes the
 engine's cache in place; the port's trace model extends the JAX builtin
 model eid for eid; shared events encode byte for byte alike.  Also the port's guards: no
 JAX or ``repro`` import anywhere in the port, no CPU fallback in the
-launcher, and an error for every tracing knob whose module is not ported.
+launcher, and an error for the tracing knob whose module is not ported
+(remediation); the live-tracing knobs start a session.
 The offline knobs (online tally, aggregate-only, columnar sidecars, the
 tally-only rung) tally a serving session as the JAX package's do.
 """
@@ -297,8 +298,27 @@ def test_traced_step_is_a_passthrough_without_a_session():
     ],
 )
 def test_unported_trace_knobs_raise(tmp_path, knob, value):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TraceConfig(out_dir=str(tmp_path), **{knob: value})
+    """``remediation`` is not ported and raises; the live-tracing knobs start
+    a session (``cluster_adaptive`` with the in-process master it reads),
+    and its tally, offline, counts the traced step."""
+    if knob == "remediation":
+        with pytest.raises(NotImplementedError, match="item 5, distribution and control plane"):
+            TraceConfig(out_dir=str(tmp_path), **{knob: value})
+        return
+    extra = {"serve_port": 0} if knob == "cluster_adaptive" else {}
+    cfg = TraceConfig(out_dir=str(tmp_path), **{knob: value}, **extra)
+    assert cfg.online  # every live knob implies the live tally
+    step = TracedStep(lambda x: x * 2, name="double", device="cpu")
+    with Tracer(cfg) as tr:
+        step(torch.ones(4))
+        assert (tr.streamer is not None) == (knob == "stream_to")
+        assert (tr.server is not None) == (knob in ("serve_port", "cluster_adaptive"))
+        assert (tr.adaptive is not None) == (knob == "adaptive")
+        assert tr.cluster is None or tr.cluster.master is tr.server
+    if knob == "stream_to":  # nothing listens there: every push is dropped
+        assert tr.handle.streamed == 0 and tr.handle.stream_dropped >= 1
+    assert tr.final_tally.device_apis[("ust_kernel", "double")].calls == 1
+    assert tally_trace(str(tmp_path)).device_apis[("ust_kernel", "double")].calls == 1
 
 
 def _knob_tally(knob, tracer, trace_dir, load, tally):
@@ -360,6 +380,8 @@ def _port_sources():
 def test_port_imports_neither_jax_nor_the_jax_package():
     srcs = list(_port_sources())
     assert len(srcs) > 20
+    rel = {os.path.relpath(p, os.path.join(ROOT, "src", "repro_torch")) for p in srcs}
+    assert {"core/stream.py", "core/adaptive.py", "examples/serve_traced.py"} <= rel
     bad = []
     for p in srcs:
         with open(p) as f:
