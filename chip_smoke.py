@@ -87,7 +87,27 @@ Phases, each fatal on failure:
      captured once (replays = steps - 1); the tokens equal an untraced
      session's.  Then tokens/s and the warm replay, live against a
      default-mode trace without the live service, in turns (live, plain,
-     live, plain), with the consumer thread's CPU share.
+     live, plain), with the consumer thread's CPU share;
+  8. the remaining serving families, each model released before the next
+     loads: the flash kernel at their prefill shapes (moonshot's MHA at
+     d=128, S = 1024 and 4096; whisper's non-causal encoder at S=T=1500 and
+     its cross attention at S=448, T=1500; llava's 56 query and 8 KV heads
+     at d=128, B=2, S=3008) in fp32 and bf16 against its plain version,
+     timed beside its bound and scaled_dot_product_attention; two-layer
+     full-width fp32 models on the card against the CPU (moonshot layer by
+     layer with every layer's top-k expert sets compared, a near tie
+     counted and the CPU's layer input fed to both sides after it; whisper
+     with two encoder and two decoder layers over 1500 random frames; llava
+     with 576 patch embeddings); full-width moonshot-v1-16b-a3b (48 layers,
+     bf16) and whisper-medium (24 + 24 layers) served under a trace as the
+     others are (flash 48 and 72 x prefills, none in decode), with their
+     [graph] phase, warm step times and profiles (moonshot's 4096-token
+     prefill: the flash and copy shares; whisper: the encoder's share of a
+     prefill); full-width llava-next-34b through Model.prefill /
+     decode_step (B=2, 2880 patch embeddings + 128 tokens, cache_len 4096,
+     flash 60 x the prefill, 16 decode steps through decode_artifacts
+     against the eager step); and the launcher at full width for moonshot
+     and whisper.
 In phases 2-4 the ``[graph]`` phase also serves each full-width model with
 the engine's decode step replaying its CUDA graph, against the eager
 ``decode_step`` on a clone of the cache at every step (tokens identical,
@@ -287,6 +307,28 @@ def device_kernels(fn, reps: int = 20) -> dict:
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     return {name: (ms / n, n) for name, (ms, n) in by_name.items()}
+
+
+def library_device_ms(lib, reps: int = 5) -> tuple:
+    """(device ms per call, the two longest device operations as (name, ms
+    per launch)) of the library call ``lib``: every device operation it runs,
+    each at its mean time per launch times its launches per call, from
+    ``device_kernels``; None when the profiler recorded none (not measured).
+    The kernel's own device time is read the same way, so the two compare
+    device time with device time."""
+    ran = device_kernels(lib, reps=reps)
+    if not ran:
+        return None, []
+    total = sum(ms * max(1, round(n / reps)) for ms, n in ran.values())
+    return total, [(name, ms) for name, (ms, _) in sorted(ran.items(), key=lambda kv: -kv[1][0])[:2]]
+
+
+def _lib_dev_text(lib_dev, dev: float, ran: list) -> str:
+    """The library call's device time beside the kernel's, for a print."""
+    if lib_dev is None:
+        return "no device operation recorded (library device time not measured)"
+    return (f"{lib_dev:.4f} ms per call on the device (profiler), the kernel's device time {dev / lib_dev:.2f}x "
+            "that; longest: " + "; ".join(f"{t:.4f} {name[:100]}" for name, t in ran))
 
 
 def kernel_device_ms(fn, kernels: tuple, reps: int = 20, tries: int = 3) -> dict:
@@ -738,19 +780,20 @@ def flash_bound(q, k, causal: bool, window) -> tuple:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def sdpa_call(q, k, v, window):
+def sdpa_call(q, k, v, window, causal: bool = True):
     """The library yardstick: one scaled_dot_product_attention call on the
     same inputs (heads moved to dim 1 as views).  Its is_causal aligns the
     mask top-left, the kernel bottom-right: the same at S = T, which is all
-    it is timed at.  Where the window bites (some query sits window or more
-    past a key) it gets the kept set as a boolean mask instead."""
+    it is timed at under causal.  Where the window bites (some query sits
+    window or more past a key) it gets the kept set as a boolean mask
+    instead."""
     import torch
     import torch.nn.functional as F
 
     S, T = q.shape[1], k.shape[1]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if window is None or S <= window:
-        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
     qpos = torch.arange(S, device=q.device)[:, None] + (T - S)
     kpos = torch.arange(T, device=q.device)[None, :]
     band = (kpos <= qpos) & (kpos > qpos - window)
@@ -827,7 +870,7 @@ def check_flash() -> dict:
 
     # times at the serving path's shapes: one layer's prefill of
     # h2o-danube-1.8b, bf16, batch 1, window 4096
-    rows = {}
+    rows, shapes = {}, []
     for S in FLASH_TIME_S:
         q, k, v = flash_inputs(1, S, S, 32, 8, 80, torch.bfloat16, seed=7)
         call = lambda: flash_attention.flash_attention(q, k, v, causal=True, window=4096)  # noqa: E731
@@ -840,17 +883,19 @@ def check_flash() -> dict:
             raise AssertionError(f"the library yardstick computes another function at S={S}: max|d|={lib_err:.3g}")
         library = cuda_ms(lib)
         bound, by = flash_bound(q, k, True, 4096)
-        rows[S] = (ms, dev, plain, library, bound, by)
+        lib_dev, ran = library_device_ms(lib)
+        rows[S] = (ms, dev, plain, library, lib_dev, bound, by)
+        shapes.append({"shape": f"danube: B=1 S={S} T={S} H=32 Kv=8 d=80 causal=True window=4096", "ms": ms,
+                       "device_ms": dev, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                       "library_ms": library, "library_device_ms": lib_dev})
         print(
             f"[flash-time] bf16 B=1 S={S} H=32 Kv=8 d=80 window 4096: kernel {ms:.4f} ms per call (CUDA events), "
             f"{dev:.4f} ms on the device (profiler), plain {plain:.4f} ms, "
             f"library scaled_dot_product_attention {library:.4f} ms (max|d| vs kernel {lib_err:.3g}), "
             f"bound {bound:.5f} ms ({by}; {flash_pairs(S, S, True, 4096)} kept pairs per head)"
         )
-        ran = sorted(device_kernels(lib, reps=5).items(), key=lambda kv: -kv[1][0])[:2]
-        print(f"[flash-time] library S={S}, the device kernels that ran (ms per call, profiler): "
-              + ("; ".join(f"{t:.4f} {name[:100]}" for name, (t, _) in ran) or "none recorded (not measured)"))
-    ms, dev, plain, library, bound, by = rows[FLASH_TIME_S[1]]
+        print(f"[flash-time] library S={S}: {_lib_dev_text(lib_dev, dev, ran)}")
+    ms, dev, plain, library, lib_dev, bound, by = rows[FLASH_TIME_S[1]]
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -864,7 +909,9 @@ def check_flash() -> dict:
         "bound_ms": bound,
         "bound_by": by,
         "library_ms": library,
+        "library_device_ms": lib_dev,
         "hgmma": sum(hgmma.values()) if hgmma else "not measured",
+        "shapes": shapes,  # each timed shape; the later families' are added after their [flash] phase
     }
 
 
@@ -1108,9 +1155,11 @@ def warm_step_times(model, params, eng, prompt_lens, rng, tag: str, cache_len: i
     time to its completion (equal when the host, not the card, bounds it)."""
     import torch
 
+    from repro_torch.serve.engine import prompt_batch
+
     for S in sorted(set(prompt_lens)):
         toks = torch.as_tensor(rng.integers(0, model.cfg.vocab_size, size=(1, S)), device=DEVICE)
-        host, done_ms = host_vs_device(lambda: model.prefill(params, {"tokens": toks}, cache_len))
+        host, done_ms = host_vs_device(lambda: model.prefill(params, prompt_batch(model, toks), cache_len))
         print(f"[{tag}] prefill S={S}: {done_ms:.2f} ms to completion, host enqueue {host:.2f} ms (median of 5, warm)")
     tok = torch.zeros(eng.cfg.batch_slots, dtype=torch.int32, device=DEVICE)
     host, done_ms = host_vs_device(lambda: model.decode_step(params, eng.cache, {"token": tok}))
@@ -1132,7 +1181,8 @@ def init_full_width(arch: str, tag: str):
     # the config's analytic count leaves out parameters the spec tree
     # allocates (as the JAX package's does); the tensors follow the spec tree
     print(f"[{tag}] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.dtype}, "
-          f"{_numel(params)} parameters (config formula: {cfg.active_params()}), "
+          f"{_numel(params)} parameters (config formula: num_params {cfg.num_params()}, active_params "
+          f"{cfg.active_params()}), {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
           f"init {time.perf_counter() - t0:.1f} s")
     return model, params
 
@@ -1283,8 +1333,12 @@ GRAPH_PROFILE_REPLAYS = 3
 
 
 def _rel(a, b) -> float:
-    a, b = a.double(), b.double()
-    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+    """max|a - b| / max|b| in float64, one leading slice at a time: a
+    full-width cache leaf in float64 does not fit beside moonshot's weights."""
+    if a.ndim == 0:
+        a, b = a[None], b[None]
+    num = max(float((x.double() - y.double()).abs().max()) for x, y in zip(a, b, strict=True))
+    return num / max(max(float(y.double().abs().max()) for y in b), 1e-30)
 
 
 def graph_phase(model, params, prompt_lens, rng, tag: str, cache_len: int = 2048, long_prompt: int = 3000) -> None:
@@ -1303,6 +1357,7 @@ def graph_phase(model, params, prompt_lens, rng, tag: str, cache_len: int = 2048
 
     from repro_torch.serve import ServeConfig, ServeEngine
     from repro_torch.serve.artifacts import DecodeGraph
+    from repro_torch.serve.engine import prompt_batch
 
     V = model.cfg.vocab_size
     long_toks = torch.as_tensor(rng.integers(0, V, size=(1, long_prompt)), device=DEVICE)
@@ -1312,7 +1367,7 @@ def graph_phase(model, params, prompt_lens, rng, tag: str, cache_len: int = 2048
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        model.prefill(params, {"tokens": long_toks}, cache_len)
+        model.prefill(params, prompt_batch(model, long_toks), cache_len)
         torch.cuda.synchronize()
         return (torch.cuda.max_memory_allocated() - base) / 2**20
 
@@ -1805,6 +1860,469 @@ def live_phase() -> None:
 
 
 # ---------------------------------------------------------------------------
+# The remaining serving families: MoE, encoder-decoder and the VLM prefix
+# ---------------------------------------------------------------------------
+
+MOONSHOT = "moonshot-v1-16b-a3b"
+WHISPER = "whisper-medium"
+LLAVA = "llava-next-34b"
+#: the flash kernel at the new families' prefill shapes (name, B, S, T, H,
+#: Kv, d, causal): moonshot's MHA at d=128; whisper's non-causal encoder at
+#: T=1500 (no multiple of the 64-key tile) and its cross attention with S <
+#: T; llava's 7 query heads a KV head over 2880 patches and 128 tokens
+FLASH_FAMILY_CASES = [
+    ("moonshot", 1, 1024, 1024, 16, 16, 128, True),
+    ("moonshot", 1, 4096, 4096, 16, 16, 128, True),
+    ("whisper encoder", 1, 1500, 1500, 16, 16, 64, False),
+    ("whisper cross", 1, 448, 1500, 16, 16, 64, False),
+    ("llava", 2, 3008, 3008, 56, 8, 128, True),
+]
+#: the two-layer moonshot card-against-CPU prompt, and its router's near tie:
+#: a token whose top-k sets differ fails unless the CPU's gap between its
+#: k-th and (k+1)-th probability is under this
+MOE_CPU_PROMPT = 512
+NEAR_TIE = 1e-5
+#: whisper's two-plus-two-layer prompt (its real decoder length) and cache_len
+WHISPER_CPU_CASE = (448, 512)
+#: llava's two-layer card-against-CPU run: one 24x24 tile of patches, text, cache_len
+VLM_CPU_CASE = (576, 64, 1024)
+MOE_PROMPT_LENS = (100, 512, 1024, 2000, 256, 512)
+MOE_LONG_PROMPT = 4096
+WHISPER_PROMPT_LENS = (32, 128, 448, 1024, 64, 256)
+#: whisper prompts whose warm prefill the encoder's time is set against; the
+#: last is also the [graph] phase's long prompt and the profiled prefill
+WHISPER_SHARE_LENS = (32, 448, 1024)
+#: the [vlm] phase: batch rows, text tokens, cache_len and decode steps
+VLM_BATCH, VLM_TEXT, VLM_CACHE_LEN, VLM_STEPS = 2, 128, 4096, 16
+
+
+def release(tag: str) -> None:
+    """Free what the last phase left on the card before the next model loads."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"[release] {tag}: {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved")
+
+
+def check_flash_families() -> tuple:
+    """The flash kernel at FLASH_FAMILY_CASES against its plain version in
+    fp32 (1e-4) and bf16 (2e-3 + 2e-2·max|o_ref| of the row), then timed in
+    bf16 beside its bound and scaled_dot_product_attention.  Returns (max
+    |do|, a row per shape for the kernels line)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention, ref
+
+    max_err, rows = 0.0, []
+    for i, (name, B, S, T, H, Kv, d, causal) in enumerate(FLASH_FAMILY_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(B, S, T, H, Kv, d, dtype, seed=200 + i)
+            o = flash_attention.flash_attention(q, k, v, causal=causal)
+            o_ref = ref.flash_attention_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err = (o.float() - o_ref.float()).abs().max().item()
+            close, limit = flash_close(o, o_ref, dtype, True)
+            ok = o.dtype == dtype and bool(torch.isfinite(o).all()) and close
+            print(f"[flash] {name}: {dtype} B={B} S={S} T={T} H={H} Kv={Kv} d={d} causal={causal}: "
+                  f"max|do|={err:.3g} tol {limit} {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                raise AssertionError(f"flash_attention disagrees with flash_attention_ref at {name} {dtype}")
+            max_err = max(max_err, err)
+            del o_ref
+        call = lambda: flash_attention.flash_attention(q, k, v, causal=causal)  # noqa: E731
+        ms = cuda_ms(call)
+        dev = kernel_device_ms(call, ("flash_attention_wgmma_kernel",))["flash_attention_wgmma_kernel"]
+        plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal), reps=5)
+        lib = sdpa_call(q, k, v, None, causal)
+        lib_err = (lib().transpose(1, 2).float() - call().float()).abs().max().item()
+        if lib_err > 2e-2:
+            raise AssertionError(f"the library yardstick computes another function at {name}: max|d|={lib_err:.3g}")
+        library = cuda_ms(lib)
+        lib_dev, ran = library_device_ms(lib)
+        bound, by = flash_bound(q, k, causal, None)
+        shape = f"{name}: B={B} S={S} T={T} H={H} Kv={Kv} d={d} causal={causal}"
+        print(f"[flash-time] bf16 {shape}: kernel {ms:.4f} ms per call (CUDA events), {dev:.4f} ms on the device "
+              f"(profiler), plain {plain:.4f} ms, library scaled_dot_product_attention {library:.4f} ms per call "
+              f"(CUDA events; max|d| vs kernel {lib_err:.3g}), bound {bound:.5f} ms ({by}); device {dev / bound:.2f}x "
+              f"the bound; events {ms / library:.2f}x the library's")
+        print(f"[flash-time] library {name}: {_lib_dev_text(lib_dev, dev, ran)}")
+        rows.append({"shape": shape, "ms": ms, "device_ms": dev, "plain_ms": plain, "bound_ms": bound,
+                     "bound_by": by, "library_ms": library, "library_device_ms": lib_dev})
+        del q, k, v
+    return max_err, rows
+
+
+def _routing(cfg, pl, h) -> tuple:
+    """(top-k expert ids, fp32 router probabilities) of the router input ``h``."""
+    import torch
+
+    from repro_torch.models import moe
+
+    xt = h.reshape(-1, cfg.d_model)
+    return moe._router(cfg, pl["router"], xt)[1], torch.softmax(xt.float() @ pl["router"].float(), dim=-1)
+
+
+def _near_ties(cfg, ids, ids_cpu, probs_cpu, where: str) -> list:
+    """The tokens whose top-k expert sets differ between the card and the
+    CPU; each must be a near tie (the CPU's gap between its k-th and
+    (k+1)-th probability under NEAR_TIE), else the phase fails."""
+    k = cfg.moe.top_k
+    differ = (ids.sort(dim=-1).values.cpu() != ids_cpu.sort(dim=-1).values).any(dim=-1).nonzero().flatten().tolist()
+    top = probs_cpu.topk(k + 1, dim=-1).values
+    gap = top[:, k - 1] - top[:, k]
+    far = [(t, gap[t].item()) for t in differ if gap[t] >= NEAR_TIE]
+    if far:
+        raise AssertionError(f"[model-moe] {where}: tokens {far} chose other experts on the card, (token, gap)")
+    return differ
+
+
+def _close_rows(name: str, a, b, skip=()) -> float:
+    """max|a - b| over the rows (dim 1 of [B, S, ...], or dim 0 of a [B, 1, ...]
+    decode) not in ``skip``; fails past 1e-3."""
+    import torch
+
+    a, b = a.float().cpu(), b.float().cpu()
+    if skip:
+        keep = torch.ones(a.shape[1] if a.shape[1] > 1 else a.shape[0], dtype=torch.bool)
+        keep[list(skip)] = False
+        a, b = (a[:, keep], b[:, keep]) if a.shape[1] > 1 else (a[keep], b[keep])
+    if not torch.isfinite(a).all():
+        raise AssertionError(f"non-finite {name} on the card")
+    if not torch.allclose(a, b, rtol=1e-3, atol=1e-3):
+        raise AssertionError(f"card and CPU disagree on {name}: max|d|={(a - b).abs().max().item():.3g}")
+    return (a - b).abs().max().item()
+
+
+def check_moe_against_cpu() -> None:
+    """Two full-width moonshot-v1-16b-a3b layers, fp32: a MOE_CPU_PROMPT-token
+    prompt and three decode steps, card (flash kernel) against CPU (plain),
+    layer by layer.  Each layer's top-k expert set per token must agree; a
+    token whose sets differ is a near tie (else the phase fails), is left out
+    of that layer's comparison, and from the next layer on both devices take
+    the CPU's layer input.  Layer outputs, cache rows and logits within 1e-3;
+    both devices decode the CPU's greedy token."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, moe, transformer
+    from repro_torch.models.layers import apply_norm, embed, layer_slice, prefill_rows, unembed
+
+    cfg = dataclasses.replace(get_config(MOONSHOT), num_layers=2, dtype="float32")
+    params = Model(cfg).init(torch.Generator(device=DEVICE).manual_seed(4))
+    devs = {"card": (DEVICE, params), "cpu": ("cpu", _to(params, "cpu"))}
+    S, V, cache_len = MOE_CPU_PROMPT, cfg.vocab_size, MOE_CPU_PROMPT + 4
+    toks = torch.as_tensor(np.random.default_rng(4).integers(0, V, size=(1, S)))
+    ties, worst, cpu_s = 0, 0.0, 0.0
+
+    def layer(where: str, l: int, run) -> dict:
+        """Layer l on both sides, ``run(side, pl, mlp) -> (x, *more)``;
+        checks the routing and the outputs, and returns {side: (x, *more)}
+        with the card's x the CPU's after a near tie."""
+        nonlocal ties, worst, cpu_s
+        out, route = {}, {}
+        for side, (_, p) in devs.items():
+            pl = layer_slice(p["blocks"], l)
+            seen = []
+            t0 = time.perf_counter()
+            out[side] = run(side, pl, lambda c, pl_, h: seen.append(h) or moe._moe_mlp(c, pl_, h))
+            route[side] = _routing(cfg, pl, seen[0])
+            cpu_s += (time.perf_counter() - t0) if side == "cpu" else 0.0
+        tied = _near_ties(cfg, route["card"][0], *route["cpu"], f"{where} layer {l}")
+        ties += len(tied)
+        for j, (a, b) in enumerate(zip(out["card"], out["cpu"], strict=True)):
+            worst = max(worst, _close_rows(f"{where} layer {l} output {j}", a, b, tied if j == 0 else ()))
+        if tied:
+            out["card"] = (out["cpu"][0].to(DEVICE),) + tuple(out["card"][1:])
+        return out
+
+    x = {side: embed(p["embed"], toks.to(dev)) for side, (dev, p) in devs.items()}
+    cache = {side: {"k": [], "v": []} for side in devs}
+    for l in range(cfg.num_layers):
+        out = layer("prefill", l, lambda side, pl, mlp: transformer.prefill_layer(
+            cfg, pl, x[side], torch.arange(S, device=devs[side][0])[None], mlp))
+        for side, (xo, k, v) in out.items():
+            x[side] = xo
+            cache[side]["k"].append(prefill_rows(k, cache_len, False))
+            cache[side]["v"].append(prefill_rows(v, cache_len, False))
+    for side, c in cache.items():
+        c.update(k=torch.stack(c["k"]), v=torch.stack(c["v"]),
+                 len=torch.full((1,), S, dtype=torch.int32, device=devs[side][0]))
+    for step in range(4):
+        logits = {side: unembed(cfg, p["embed"], apply_norm(cfg, p["ln_f"], x[side][:, -1:]))
+                  for side, (_, p) in devs.items()}
+        worst = max(worst, _close_rows(f"logits after {step} decode steps", logits["card"], logits["cpu"]))
+        if step == 3:
+            break
+        tok = torch.argmax(logits["cpu"][:, 0, :V], dim=-1)
+        if not torch.equal(torch.argmax(logits["card"][:, 0, :V], dim=-1).cpu(), tok):
+            print(f"[model-moe] the greedy tokens before decode step {step + 1} differ; both sides decode the CPU's")
+        x = {side: embed(p["embed"], tok.to(dev)[:, None]) for side, (dev, p) in devs.items()}
+        valid = {side: torch.clamp(c["len"] + 1, max=cache_len) for side, c in cache.items()}
+        for l in range(cfg.num_layers):
+            out = layer(f"decode {step + 1}", l, lambda side, pl, mlp: (transformer.decode_layer(
+                cfg, pl, x[side], cache[side]["k"][l], cache[side]["v"][l], cache[side]["len"], valid[side], mlp),))
+            x = {side: o[0] for side, o in out.items()}
+        for c in cache.values():
+            c["len"] += 1
+    for name in ("k", "v"):
+        worst = max(worst, _close_rows(f"cache {name}", cache["card"][name], cache["cpu"][name]))
+    print(f"[model-moe] 2-layer full-width fp32, {S}-token prompt, cache_len {cache_len}, 3 decode steps: layer "
+          f"outputs, logits and cache rows card vs cpu max|d| {worst:.3g} (tol 1e-3); top-k expert sets equal "
+          f"but for {ties} near tie(s) (CPU gap under {NEAR_TIE}); the CPU side took {cpu_s:.1f} s")
+
+
+def check_family_against_cpu(cfg, tag: str, seed: int, batch_of, cache_len: int, what: str) -> None:
+    """A reduced-depth full-width ``cfg`` (fp32): the prefill of
+    ``batch_of(device)`` and three decode steps, card (flash kernel)
+    against CPU (plain), over logits and every cache leaf, 1e-3."""
+    import torch
+
+    from repro_torch.models import Model
+
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(seed))
+    out, cpu_s = {}, 0.0
+    for dev, p in ((DEVICE, params), ("cpu", _to(params, "cpu"))):
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(p, batch_of(dev), cache_len)
+        steps = [logits]
+        tok = torch.argmax(logits[:, 0, : cfg.vocab_size], -1)
+        for _ in range(3):
+            logits, cache = model.decode_step(p, cache, {"token": tok})
+            steps.append(logits)
+            tok = torch.argmax(logits[:, 0, : cfg.vocab_size], -1)
+        out[dev] = [t.float().cpu() for t in steps] + [t.float().cpu() for t in _leaves(cache)]
+        if dev == "cpu":
+            cpu_s = time.perf_counter() - t0
+    names = ["prefill", "decode1", "decode2", "decode3"] + [f"cache {k}" for k in cache]
+    errs = [f"{n} {_close_rows(n, a, b):.3g}" for n, a, b in zip(names, out[DEVICE], out["cpu"], strict=True)]
+    print(f"[{tag}] {what}, fp32, cache_len {cache_len}: card vs cpu max|d| (tol 1e-3): {'; '.join(errs)} ok; "
+          f"the CPU side took {cpu_s:.1f} s")
+
+
+def check_whisper_against_cpu() -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+
+    base = get_config(WHISPER)
+    cfg = dataclasses.replace(base, num_layers=2, dtype="float32",
+                              encdec=dataclasses.replace(base.encdec, enc_layers=2))
+    S, cache_len = WHISPER_CPU_CASE
+    rng = np.random.default_rng(5)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, S)))
+    frames = torch.as_tensor(rng.normal(size=(1, cfg.encdec.enc_positions, cfg.d_model)).astype(np.float32))
+    check_family_against_cpu(cfg, "model-ed", 5, lambda dev: {"tokens": toks.to(dev), "frames": frames.to(dev)},
+                             cache_len, f"2 encoder + 2 decoder full-width layers, {cfg.encdec.enc_positions} "
+                             f"random frames, {S}-token prompt")
+
+
+def check_vlm_against_cpu() -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(LLAVA), num_layers=2, dtype="float32")
+    P, S, cache_len = VLM_CPU_CASE
+    rng = np.random.default_rng(6)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, S)))
+    patches = torch.as_tensor(rng.normal(0, 0.02, size=(1, P, cfg.d_model)).astype(np.float32))
+    check_family_against_cpu(cfg, "model-vlm", 6,
+                             lambda dev: {"tokens": toks.to(dev), "patch_embeds": patches.to(dev)}, cache_len,
+                             f"2 full-width layers, {P} patch embeddings + {S}-token prompt")
+
+
+def _flash_gate(tag: str, launches: dict, per_prefill: int, prefills: int, steps: int) -> int:
+    if launches != {"ssd_scan": 0, "rglru_scan": 0, "flash_attention": per_prefill * prefills}:
+        raise AssertionError(f"[{tag}] launches {launches}: want flash_attention = {per_prefill} x {prefills} "
+                             "prefills, no other kernel")
+    print(f"[{tag}] flash_attention launches {launches['flash_attention']} = {per_prefill} per prefill x "
+          f"{prefills} prefills (none in the {steps} decode steps)")
+    return launches["flash_attention"]
+
+
+def _finite_cache(tag: str, cache) -> None:
+    import torch
+
+    if not all(bool(torch.isfinite(t.float()).all()) for t in _leaves(cache) if t.is_floating_point()):
+        raise AssertionError(f"[{tag}] non-finite cache")
+
+
+def serve_moonshot() -> int:
+    """Full-width moonshot-v1-16b-a3b (48 layers, 64 experts, top-6, bf16):
+    the traced session (flash in every layer of every prefill, none in
+    decode), warm step times, the decode graph, and the profiles of a decode
+    step and of a MOE_LONG_PROMPT prefill (the flash kernel's and the copy
+    kernels' shares)."""
+    import numpy as np
+    import torch
+
+    model, params = init_full_width(MOONSHOT, "moe")
+    L = model.cfg.num_layers
+    rng = np.random.default_rng(4)
+    eng, _, launches, steps = traced_session(model, params, MOE_PROMPT_LENS, rng, "moe")
+    _finite_cache("moe", eng.cache)
+    n = _flash_gate("moe", launches, L, len(MOE_PROMPT_LENS), steps)
+    warm_step_times(model, params, eng, MOE_PROMPT_LENS + (MOE_LONG_PROMPT,), rng, "moe")
+    graph_phase(model, params, GRAPH_PROMPT_LENS, rng, "moonshot", long_prompt=MOE_LONG_PROMPT)
+    tok = torch.zeros(eng.cfg.batch_slots, dtype=torch.int32, device=DEVICE)
+    profile_step(lambda: model.decode_step(params, eng.cache, {"token": tok}), "decode step, eager (4 slots)",
+                 "moe", kernels=("copy",))
+    toks = torch.as_tensor(rng.integers(0, model.cfg.vocab_size, size=(1, MOE_LONG_PROMPT)), device=DEVICE)
+    for kernels, launched in ((("flash_attention_wgmma_kernel",), L), (("copy",), 0)):
+        profile_step(lambda: model.prefill(params, {"tokens": toks}, 2048), f"prefill S={MOE_LONG_PROMPT}", "moe",
+                     kernels=kernels, launches=launched)
+    return n
+
+
+def serve_whisper() -> int:
+    """Full-width whisper-medium (24 encoder + 24 decoder layers, bf16) through
+    the engine, which feeds zero frames: the traced session (flash in the
+    encoder's 24 layers and the decoder's 24 self and 24 cross attentions of
+    every prefill, none in decode), warm step times, the encoder's share of a
+    prefill, the decode graph and a decode step's profile."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import encdec
+    from repro_torch.serve.engine import prompt_batch
+
+    model, params = init_full_width(WHISPER, "whisper")
+    cfg = model.cfg
+    per = cfg.encdec.enc_layers + 2 * cfg.num_layers
+    rng = np.random.default_rng(5)
+    eng, _, launches, steps = traced_session(model, params, WHISPER_PROMPT_LENS, rng, "whisper")
+    _finite_cache("whisper", eng.cache)
+    n = _flash_gate("whisper", launches, per, len(WHISPER_PROMPT_LENS), steps)
+    warm_step_times(model, params, eng, WHISPER_PROMPT_LENS, rng, "whisper")
+    frames = prompt_batch(model, torch.zeros((1, 1), dtype=torch.long, device=DEVICE))["frames"]
+    host, enc_ms = host_vs_device(lambda: encdec.encode(cfg, params, frames))
+    for S in WHISPER_SHARE_LENS:
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, S)), device=DEVICE)
+        _, done_ms = host_vs_device(lambda t=toks: model.prefill(params, prompt_batch(model, t), 2048))
+        print(f"[whisper] the encoder ({cfg.encdec.enc_positions} frames, {cfg.encdec.enc_layers} layers): {enc_ms:.2f} ms to completion, host enqueue "
+              f"{host:.2f} ms; {enc_ms / done_ms:.3f} of a {S}-token prefill's {done_ms:.2f} ms (medians of 5, warm)")
+    graph_phase(model, params, GRAPH_PROMPT_LENS, rng, "whisper", long_prompt=WHISPER_SHARE_LENS[-1])
+    tok = torch.zeros(eng.cfg.batch_slots, dtype=torch.int32, device=DEVICE)
+    profile_step(lambda: model.decode_step(params, eng.cache, {"token": tok}), "decode step, eager (4 slots)",
+                 "whisper", kernels=("copy",))
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, WHISPER_SHARE_LENS[-1])), device=DEVICE)
+    profile_step(lambda: model.prefill(params, prompt_batch(model, toks), 2048), f"prefill S={toks.shape[1]}", "whisper",
+                 kernels=("flash_attention_wgmma_kernel",), launches=per)
+    return n
+
+
+def serve_llava() -> int:
+    """Full-width llava-next-34b (60 layers, bf16) through ``Model.prefill`` /
+    ``decode_step`` (the engine, like the JAX one, feeds no patch
+    embeddings): VLM_BATCH rows of 2880 patch embeddings drawn from the seed
+    and VLM_TEXT tokens, cache_len VLM_CACHE_LEN; flash in each layer of the
+    prefill; VLM_STEPS decode steps through ``decode_artifacts`` (eager and
+    captured, then replays), each against the eager step on a copy of the
+    cache (tokens identical, cache and logits within GRAPH_TOL relative);
+    then warm times, the replay's profile and the peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.artifacts import DecodeGraph, decode_artifacts
+
+    model, params = init_full_width(LLAVA, "vlm")
+    cfg = model.cfg
+    V, B = cfg.vocab_size, VLM_BATCH
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    batch = {
+        "tokens": torch.randint(0, V, (B, VLM_TEXT), device=DEVICE, generator=g),
+        "patch_embeds": (0.02 * torch.randn(B, cfg.vision_tokens, cfg.d_model, device=DEVICE, generator=g)).to(
+            torch.bfloat16),
+    }
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch, VLM_CACHE_LEN)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    step = decode_artifacts(model, DEVICE)
+    if not isinstance(step, DecodeGraph):
+        raise AssertionError(f"the decode step is {step!r}, not a DecodeGraph")
+    eager = _clone(cache)
+    tok = torch.argmax(logits[:, 0, :V], dim=-1).to(torch.int32)
+    worst = {"logits": 0.0, "cache": 0.0}
+    for i in range(VLM_STEPS):
+        for a, b in zip(_leaves(eager), _leaves(cache), strict=True):
+            a.copy_(b)
+        eager_tok = tok.clone()
+        got, _ = step(params, cache, {"token": tok})
+        want, _ = model.decode_step(params, eager, {"token": eager_tok})
+        nxt = torch.argmax(got[:, 0, :V], dim=-1).to(torch.int32)
+        if not torch.equal(nxt, torch.argmax(want[:, 0, :V], dim=-1).to(torch.int32)):
+            raise AssertionError(f"[vlm] decode step {i + 1}: replayed tokens differ from the eager step's")
+        worst["logits"] = max(worst["logits"], _rel(got, want))
+        for a, b in zip(_leaves(cache), _leaves(eager), strict=True):
+            worst["cache"] = max(worst["cache"], _rel(a, b))
+        tok.copy_(nxt)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if step.replays != VLM_STEPS - 1 or step.captured or max(worst.values()) > GRAPH_TOL:
+        raise AssertionError(f"[vlm] {step.replays} replays, captured {step.captured}, graph against eager {worst}")
+    _finite_cache("vlm", cache)
+    if cache["len"].tolist() != [cfg.vision_tokens + VLM_TEXT + VLM_STEPS] * B:
+        raise AssertionError(f"[vlm] cache lengths {cache['len'].tolist()}")
+    n = _flash_gate("vlm", launches, cfg.num_layers, 1, VLM_STEPS)
+    print(f"[vlm] {cfg.name}, all {cfg.num_layers} layers: B={B}, {cfg.vision_tokens} patch embeddings + "
+          f"{VLM_TEXT} tokens, cache_len {VLM_CACHE_LEN}: first prefill {prefill_s:.2f} s; {VLM_STEPS} decode "
+          f"steps ({step.replays} replays), tokens identical to the eager step, largest relative difference logits "
+          f"{worst['logits']:.3g}, cache {worst['cache']:.3g} (tol {GRAPH_TOL}); peak device memory "
+          f"{peak / 2**30:.3f} GiB")
+    del eager
+    host, done_ms = host_vs_device(lambda: model.prefill(params, batch, VLM_CACHE_LEN))
+    print(f"[vlm] prefill B={B} S={cfg.vision_tokens + VLM_TEXT}: {done_ms:.2f} ms to completion, host enqueue "
+          f"{host:.2f} ms (median of 5, warm)")
+    dbatch = {"token": tok}
+    host, done_ms = host_vs_device(lambda: step(params, cache, dbatch))
+    ehost, edone = host_vs_device(lambda: model.decode_step(params, cache, dbatch))
+    print(f"[vlm] decode step ({B} rows): replay {done_ms:.2f} ms to completion, host enqueue {host:.3f} ms; eager "
+          f"{edone:.2f} ms, host enqueue {ehost:.2f} ms (medians of 5, warm); {B / done_ms * 1e3:.2f} tokens/s "
+          "replayed")
+    busy = profile_step(lambda: step(params, cache, dbatch), f"decode step, replay ({B} rows)", "vlm")
+    if busy:
+        print(f"[vlm] idle share of a replay against its time to completion without the profiler: "
+              f"{1 - busy / done_ms:.3f}")
+    return n
+
+
+def serve_new_families() -> int:
+    """[flash] at the new shapes was taken before; the card-against-CPU
+    checks and the three full-width families in turn, each released before
+    the next loads, then the launcher for the two the engine serves.
+    Returns the flash launches of the three serving runs."""
+    release("before [model-moe]")
+    check_moe_against_cpu()
+    release("before [model-ed]")
+    check_whisper_against_cpu()
+    release("before [model-vlm]")
+    check_vlm_against_cpu()
+    release("before [moe]")
+    n = serve_moonshot()
+    release("before [whisper]")
+    n += serve_whisper()
+    release("before [vlm]")
+    n += serve_llava()
+    release("before [launch]")
+    serve_launcher(NEW_LAUNCH_RUNS)
+    return n
+
+
+# ---------------------------------------------------------------------------
 # The full-mode polling fence, and the command-line entry point
 # ---------------------------------------------------------------------------
 
@@ -1833,18 +2351,22 @@ def check_full_mode_fence() -> None:
     print(f"[fence] full mode: {polls.calls} poll_ready pairs over 3 fenced steps")
 
 
-def serve_launcher() -> None:
-    """The command a user runs, at full width under a trace, for each model:
-    Mamba2 with 4 requests of 512 tokens, RecurrentGemma and h2o-danube with
-    the defaults (8 requests of 16 tokens, cache_len 64, so a 64-row ring)."""
+#: the launcher's runs (arch, extra flags): Mamba2 with 4 requests of 512
+#: tokens, the others with the defaults (8 requests of 16 tokens, cache_len
+#: 64, so a 64-row ring for RecurrentGemma and h2o-danube)
+LAUNCH_RUNS = [
+    ("mamba2-1.3b", ["--requests", "4", "--prompt-len", "512", "--new-tokens", "8"]),
+    ("recurrentgemma-2b", []),
+    ("h2o-danube-1.8b", []),
+]
+NEW_LAUNCH_RUNS = [(MOONSHOT, []), (WHISPER, [])]
+
+
+def serve_launcher(runs=LAUNCH_RUNS) -> None:
+    """The command a user runs, at full width under a trace, for each model."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
-    runs = [
-        ("mamba2-1.3b", ["--requests", "4", "--prompt-len", "512", "--new-tokens", "8"]),
-        ("recurrentgemma-2b", []),
-        ("h2o-danube-1.8b", []),
-    ]
     for arch, extra in runs:
         trace_dir = tempfile.mkdtemp(prefix="thapi_launch_")
         try:
@@ -1854,19 +2376,21 @@ def serve_launcher() -> None:
         finally:
             shutil.rmtree(trace_dir, ignore_errors=True)
         cfg = get_config(arch)
-        if arch == "mamba2-1.3b":
+        if cfg.family == "ssm":
             ok = launches == {"ssd_scan": cfg.num_layers * 4, "rglru_scan": 0, "flash_attention": 0}
-        elif arch == "h2o-danube-1.8b":  # 8 prefills, each through every layer
-            ok = launches == {"ssd_scan": 0, "rglru_scan": 0, "flash_attention": cfg.num_layers * 8}
-        else:  # 8 prefills and at least 7 decode steps, each through every recurrent block
+        elif cfg.family == "hybrid":  # 8 prefills and at least 7 decode steps, each through every recurrent block
             n_rec = cfg.block_counts()[1]
             ok = launches["ssd_scan"] == launches["flash_attention"] == 0 and launches["rglru_scan"] % n_rec == 0 and (
                 launches["rglru_scan"] >= n_rec * (8 + 7)
             )
+        else:  # 8 prefills, each through every attention (whisper: its encoder's, and self and cross)
+            per = cfg.num_layers + (cfg.encdec.enc_layers + cfg.num_layers if cfg.family == "audio" else 0)
+            ok = launches == {"ssd_scan": 0, "rglru_scan": 0, "flash_attention": per * 8}
         if rc != 0 or not ok:
             raise AssertionError(f"launcher {arch}: rc={rc}, launches {launches}")
         print(f"[launch] repro_torch.launch.serve --arch {arch} --full --trace default: rc 0, launches {launches}"
               f"{launch_detail()}")
+        release(f"after the launcher's {arch}")
 
 
 def compare_only(src: str) -> int:
@@ -1928,19 +2452,29 @@ def main(argv=()) -> int:
     # h2o-danube-1.8b's
     kernels = [check_ssd()]
     check_model_against_cpu()
-    launches = serve_full_width()
+    launches = dict.fromkeys(("ssd_scan", "rglru_scan", "flash_attention"), 0)
+    for name, n in serve_full_width().items():
+        launches[name] += n
     kernels.append(check_rglru())
     check_hybrid_against_cpu()
-    launches.update(serve_recurrentgemma())
-    kernels.append(check_flash())
+    for name, n in serve_recurrentgemma().items():
+        launches[name] += n
+    flash = check_flash()
+    kernels.append(flash)
     check_rope_against_cpu()
     for S, cache_len in DANUBE_CPU_CASES:
         check_dense_against_cpu(S, cache_len)
-    launches.update(serve_danube())
+    for name, n in serve_danube().items():
+        launches[name] += n
     check_full_mode_fence()
     serve_launcher()
     iprof_phase()
     live_phase()
+    release("before [flash] at the new families' shapes")
+    err, rows = check_flash_families()
+    flash["max_abs_err"] = max(flash["max_abs_err"], err)
+    flash["shapes"] += rows
+    launches["flash_attention"] += serve_new_families()
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if not k["launches"]:

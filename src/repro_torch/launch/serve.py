@@ -6,10 +6,15 @@
         --full --trace default
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
         --full --trace default
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \
+        --full --trace default
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \
+        --full --trace default
 
 Runs on CUDA unless ``--device cpu`` is given; without a card it raises
 rather than fall back.  ``--full`` serves the published width (weights are
 random, drawn from ``--seed``); the default is the ``.smoke()`` reduction.
+A VLM (llava-next-34b) is refused: the engine feeds no patch embeddings.
 """
 
 from __future__ import annotations

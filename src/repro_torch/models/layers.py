@@ -1,10 +1,10 @@
 """Shared building blocks: RMSNorm and LayerNorm, RoPE, GQA attention, the
-SwiGLU and GeGLU MLPs, the (ring) KV cache and embeddings.
+SwiGLU, GeGLU and biased GELU MLPs, the (ring) KV cache and embeddings.
 
 Pure functions on tensors (params in, tensors out), mirroring the JAX
-package's ``models/layers.py`` for the pieces the Mamba2, RecurrentGemma and
-dense families use.  bf16 rounds where the JAX functions round: the QKᵀ and PV
-products run in the input dtype, the softmax and RoPE in fp32.
+package's ``models/layers.py`` for the pieces the serving families use.
+bf16 rounds where the JAX functions round: the QKᵀ and PV products run in
+the input dtype, the softmax and RoPE in fp32.
 """
 
 from __future__ import annotations
@@ -143,7 +143,7 @@ def attend(
     return out.reshape(B, S, H, hd)
 
 
-def attn_specs(cfg: ModelConfig, stacked: Optional[int] = None) -> dict:
+def attn_specs(cfg: ModelConfig, stacked: Optional[int] = None, cross: bool = False) -> dict:
     d, H, Kv, hd = cfg.d_model, cfg.padded_heads, cfg.padded_kv_heads, cfg.head_dim_
     lead = (stacked,) if stacked else ()
     lax = ("layers",) if stacked else ()
@@ -153,7 +153,7 @@ def attn_specs(cfg: ModelConfig, stacked: Optional[int] = None) -> dict:
         "wv": Spec(lead + (d, Kv, hd), lax + ("embed", "kv_heads", "head_dim")),
         "wo": Spec(lead + (H, hd, d), lax + ("heads", "head_dim", "embed")),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         s["bq"] = Spec(lead + (H, hd), lax + ("heads", "head_dim"), "zeros")
         s["bk"] = Spec(lead + (Kv, hd), lax + ("kv_heads", "head_dim"), "zeros")
         s["bv"] = Spec(lead + (Kv, hd), lax + ("kv_heads", "head_dim"), "zeros")
@@ -184,27 +184,32 @@ def attn_out(p: dict, ctx: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_specs(cfg: ModelConfig, stacked: Optional[int] = None) -> dict:
-    if cfg.mlp_type not in ("swiglu", "geglu"):
-        raise NotImplementedError(
-            f"mlp {cfg.mlp_type!r} is ported in a later slice, see ROADMAP.md"
-        )
     d, ff = cfg.d_model, cfg.d_ff
     lead = (stacked,) if stacked else ()
     lax = ("layers",) if stacked else ()
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        return {
+            "w_gate": Spec(lead + (d, ff), lax + ("embed", "mlp")),
+            "w_up": Spec(lead + (d, ff), lax + ("embed", "mlp")),
+            "w_down": Spec(lead + (ff, d), lax + ("mlp", "embed")),
+        }
     return {
-        "w_gate": Spec(lead + (d, ff), lax + ("embed", "mlp")),
         "w_up": Spec(lead + (d, ff), lax + ("embed", "mlp")),
+        "b_up": Spec(lead + (ff,), lax + ("mlp",), "zeros"),
         "w_down": Spec(lead + (ff, d), lax + ("mlp", "embed")),
+        "b_down": Spec(lead + (d,), lax + ("embed",), "zeros"),
     }
 
 
 def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU or GeGLU.  ``jax.nn.gelu`` is the tanh approximation by default."""
+    """SwiGLU, GeGLU, or (any other ``mlp_type``, as in the JAX package) the
+    non-gated GELU MLP with biases.  ``jax.nn.gelu`` is the tanh
+    approximation by default."""
     if cfg.mlp_type == "swiglu":
         return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
     if cfg.mlp_type == "geglu":
         return (F.gelu(x @ p["w_gate"], approximate="tanh") * (x @ p["w_up"])) @ p["w_down"]
-    raise NotImplementedError(f"mlp {cfg.mlp_type!r} is ported in a later slice, see ROADMAP.md")
+    return F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh") @ p["w_down"] + p["b_down"]
 
 
 # ---------------------------------------------------------------------------

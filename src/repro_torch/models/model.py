@@ -1,4 +1,5 @@
-"""Model facade over the ported families (SSM, hybrid and dense so far).
+"""Model facade over the serving families: SSM, hybrid, dense, MoE, audio
+(encoder–decoder) and VLM (the dense model with a patch-embedding prefix).
 
     m = Model(cfg)
     m.param_specs()            spec tree (shapes/init in one declaration)
@@ -11,20 +12,22 @@ from __future__ import annotations
 
 import torch
 
-from . import hybrid, ssm, transformer
+from . import encdec, hybrid, moe, ssm, transformer
 from .config import ModelConfig, ShapeSpec
 from .param import init as spec_init
 
-_FAMILY = {"ssm": ssm, "hybrid": hybrid, "dense": transformer}
+_FAMILY = {
+    "ssm": ssm,
+    "hybrid": hybrid,
+    "dense": transformer,
+    "moe": moe,
+    "audio": encdec,
+    "vlm": transformer,
+}
 
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in _FAMILY:
-            raise NotImplementedError(
-                f"model family {cfg.family!r} ({cfg.name}) is ported in a later "
-                "slice, see ROADMAP.md"
-            )
         self.cfg = cfg
         self.mod = _FAMILY[cfg.family]
 

@@ -31,31 +31,41 @@ class Spec:
             raise ValueError(f"shape {self.shape} / axes {self.axes} rank mismatch")
 
 
-def _uniform(s: Spec, gen: torch.Generator, lo: float, hi: float) -> torch.Tensor:
-    u = torch.empty(s.shape, dtype=torch.float32, device=gen.device)
-    return u.uniform_(lo, hi, generator=gen)
+def _draw(s: Spec, shape: Tuple[int, ...], gen: torch.Generator) -> torch.Tensor:
+    """An fp32 draw of ``shape`` from the leaf's distribution."""
+    if s.init == "lru_a":
+        # RG-LRU Λ init: a in [0.9, 0.999] → Λ = softplus^-1(-log(a)/c), c = 8
+        u = torch.empty(shape, device=gen.device).uniform_(0.9, 0.999, generator=gen)
+        return torch.log(torch.expm1(-torch.log(u) / 8.0))
+    if s.init == "ssm_a":
+        # Mamba2 A init: -uniform[1, 16], stored as log
+        return torch.log(torch.empty(shape, device=gen.device).uniform_(1.0, 16.0, generator=gen))
+    if s.init == "ssm_dt":
+        # dt bias ~ softplus^-1(uniform[1e-3, 1e-1])
+        u = torch.empty(shape, device=gen.device).uniform_(1e-3, 1e-1, generator=gen)
+        return torch.log(torch.expm1(u))
+    if s.init != "normal":
+        raise ValueError(f"unknown init {s.init!r}")
+    return torch.randn(shape, device=gen.device, generator=gen).mul_(s.scale)
 
 
 def _init_leaf(s: Spec, gen: torch.Generator, dtype: str) -> torch.Tensor:
+    """The leaf in its dtype, filled one layer at a time when it is stacked
+    over layers: a full-width expert leaf (moonshot-v1-16b-a3b's ``w_gate``,
+    8.9e9 elements) would not fit the card as one fp32 draw, so init holds
+    the weights and one layer's fp32 draw at most."""
     dt = DTYPES[s.dtype or dtype]
     if s.init == "zeros":
         return torch.zeros(s.shape, dtype=dt, device=gen.device)
     if s.init == "ones":
         return torch.ones(s.shape, dtype=dt, device=gen.device)
-    if s.init == "lru_a":
-        # RG-LRU Λ init: a in [0.9, 0.999] → Λ = softplus^-1(-log(a)/c), c = 8
-        u = _uniform(s, gen, 0.9, 0.999)
-        return torch.log(torch.expm1(-torch.log(u) / 8.0)).to(dt)
-    if s.init == "ssm_a":
-        # Mamba2 A init: -uniform[1, 16], stored as log
-        return torch.log(_uniform(s, gen, 1.0, 16.0)).to(dt)
-    if s.init == "ssm_dt":
-        # dt bias ~ softplus^-1(uniform[1e-3, 1e-1])
-        return torch.log(torch.expm1(_uniform(s, gen, 1e-3, 1e-1))).to(dt)
-    if s.init != "normal":
-        raise ValueError(f"unknown init {s.init!r}")
-    w = torch.randn(s.shape, dtype=torch.float32, device=gen.device, generator=gen)
-    return (w * s.scale).to(dt)
+    out = torch.empty(s.shape, dtype=dt, device=gen.device)
+    if s.axes[:1] == ("layers",):
+        for layer in out:
+            layer.copy_(_draw(s, s.shape[1:], gen))
+    else:
+        out.copy_(_draw(s, s.shape, gen))
+    return out
 
 
 def init(tree, gen: torch.Generator, dtype: str):

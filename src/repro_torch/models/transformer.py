@@ -1,5 +1,6 @@
 """Dense decoder-only LM (llama / qwen / mistral / stablelm / h2o-danube
-families), serving path.
+families) and the VLM prefix (llava-next: precomputed patch embeddings
+prepended to the prompt), serving path.
 
 Block: norm → GQA attention with RoPE (optionally a sliding window) →
 residual → norm → SwiGLU MLP → residual.  The JAX package scans over the
@@ -69,23 +70,34 @@ def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
     return kv_cache_specs(cfg, batch, cache_len, cfg.num_layers)
 
 
-def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int):
-    """Run the prompt; returns last-position logits and a filled KV cache."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
+def _dense_mlp(cfg: ModelConfig, pl: dict, h: torch.Tensor) -> torch.Tensor:
+    return apply_mlp(cfg, pl["mlp"], h)
+
+
+def prefill_layer(cfg: ModelConfig, pl: dict, x: torch.Tensor, positions: torch.Tensor, mlp=_dense_mlp):
+    """One block over the prompt: returns (x, k, v) with the post-RoPE keys
+    and values.  ``mlp(cfg, pl, h)`` is the block's feed-forward (the MoE
+    family passes its expert layer)."""
+    h = apply_norm(cfg, pl["ln1"], x)
+    q, k, v = qkv(cfg, pl["attn"], h, positions)
+    ctx = kops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    x = x + attn_out(pl["attn"], ctx)
+    return x + mlp(cfg, pl, apply_norm(cfg, pl["ln2"], x)), k, v
+
+
+def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int, mlp=_dense_mlp):
+    """Run the prompt, after ``batch["patch_embeds"]`` where the config has
+    vision tokens; returns last-position logits and a filled KV cache."""
+    x = embed(params["embed"], batch["tokens"])
+    if cfg.vision_tokens:
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    B, S = x.shape[0], x.shape[1]
     ring = cfg.sliding_window is not None
     eff = min(cache_len, cfg.sliding_window) if ring else cache_len
-    x = embed(params["embed"], tokens)
-    positions = torch.arange(S, device=tokens.device)[None, :]
+    positions = torch.arange(S, device=x.device)[None, :]
     ks, vs = [], []
     for l in range(cfg.num_layers):
-        pl = layer_slice(params["blocks"], l)
-        h = apply_norm(cfg, pl["ln1"], x)
-        q, k, v = qkv(cfg, pl["attn"], h, positions)
-        ctx = kops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
-        x = x + attn_out(pl["attn"], ctx)
-        h = apply_norm(cfg, pl["ln2"], x)
-        x = x + apply_mlp(cfg, pl["mlp"], h)
+        x, k, v = prefill_layer(cfg, layer_slice(params["blocks"], l), x, positions, mlp)
         ks.append(prefill_rows(k, eff, ring))
         vs.append(prefill_rows(v, eff, ring))
     x = apply_norm(cfg, params["ln_f"], x[:, -1:])
@@ -93,30 +105,34 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int):
     cache = {
         "k": torch.stack(ks),
         "v": torch.stack(vs),
-        "len": torch.full((B,), S, dtype=torch.int32, device=tokens.device),
+        "len": torch.full((B,), S, dtype=torch.int32, device=x.device),
     }
     return logits, cache
 
 
-def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict):
+def decode_layer(cfg: ModelConfig, pl: dict, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                 lengths: torch.Tensor, kv_valid: torch.Tensor, mlp=_dense_mlp) -> torch.Tensor:
+    """One block for one new token at position ``lengths``: writes its K/V
+    into the layer's cache rows ``ck``/``cv`` in place and attends over the
+    first ``kv_valid`` of them."""
+    h = apply_norm(cfg, pl["ln1"], x)
+    q, k, v = qkv(cfg, pl["attn"], h, lengths[:, None])
+    cache_update(ck, cv, k, v, lengths, cfg.sliding_window)
+    ctx = attend(q, ck, cv, causal=False, kv_len=kv_valid)
+    x = x + attn_out(pl["attn"], ctx)
+    return x + mlp(cfg, pl, apply_norm(cfg, pl["ln2"], x))
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict, mlp=_dense_mlp):
     """One new token against the cache; returns (logits, cache).  The step
     writes the new K/V rows and the lengths into the cache it is handed and
     returns that same cache (the JAX engine donates it)."""
-    token = batch["token"]  # [B]
     lengths = cache["len"]  # absolute number of tokens so far
-    x = embed(params["embed"], token[:, None])
-    positions = lengths[:, None]
+    x = embed(params["embed"], batch["token"][:, None])
     kv_valid = torch.clamp(lengths + 1, max=cache["k"].shape[2])
     for l in range(cfg.num_layers):
         pl = layer_slice(params["blocks"], l)
-        h = apply_norm(cfg, pl["ln1"], x)
-        q, k, v = qkv(cfg, pl["attn"], h, positions)
-        ck, cv = cache["k"][l], cache["v"][l]
-        cache_update(ck, cv, k, v, lengths, cfg.sliding_window)
-        ctx = attend(q, ck, cv, causal=False, kv_len=kv_valid)
-        x = x + attn_out(pl["attn"], ctx)
-        h = apply_norm(cfg, pl["ln2"], x)
-        x = x + apply_mlp(cfg, pl["mlp"], h)
+        x = decode_layer(cfg, pl, x, cache["k"][l], cache["v"][l], lengths, kv_valid, mlp)
     x = apply_norm(cfg, params["ln_f"], x)
     logits = unembed(cfg, params["embed"], x)
     lengths += 1

@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.core.interception import TracedStep, decode_step_span, prefill_span
 from repro_torch.models import Model, ShapeSpec
+from repro_torch.models.param import DTYPES
 from repro_torch.models.param import zeros as spec_zeros
 
 from .artifacts import decode_artifacts
@@ -57,6 +58,19 @@ class Request:
     done: bool = False
 
 
+def prompt_batch(model: Model, tokens: torch.Tensor) -> dict:
+    """A prefill's batch: the tokens ``[B, S]`` and, for the audio family,
+    the stub frontend's frames, zeros ``[B, enc_positions, d_model]`` in the
+    model dtype on the tokens' device, as the JAX engine feeds them."""
+    batch = {"tokens": tokens}
+    mc = model.cfg
+    if mc.family == "audio":
+        batch["frames"] = torch.zeros(
+            (tokens.shape[0], mc.encdec.enc_positions, mc.d_model), dtype=DTYPES[mc.dtype], device=tokens.device
+        )
+    return batch
+
+
 class ServeEngine:
     def __init__(
         self,
@@ -67,6 +81,11 @@ class ServeEngine:
         cluster_adaptive=None,
         cluster_credentials: Optional[dict] = None,
     ):
+        if model.cfg.vision_tokens:
+            raise NotImplementedError(
+                f"{model.cfg.name}: the engine feeds no patch_embeds, as the JAX engine feeds "
+                "none; drive a VLM through Model.prefill / decode_step"
+            )
         self.model = model
         self.cfg = cfg
         self.params = params
@@ -125,7 +144,7 @@ class ServeEngine:
         """Prefill a single prompt, splice its cache row into the live batch."""
         S = int(r.prompt.shape[0])
         with prefill_span(r.rid, 1, S):
-            batch = {"tokens": torch.as_tensor(r.prompt[None, :], device=self.device)}
+            batch = prompt_batch(self.model, torch.as_tensor(r.prompt[None, :], device=self.device))
             if S not in self._prefill_steps:  # one first-call record per prompt length
                 # the step captures the model, not the engine that holds the
                 # step, so no reference cycle keeps the engine alive
@@ -140,6 +159,9 @@ class ServeEngine:
         r.out_tokens.append(first)
         self._tok[slot] = first
         self._splice_tree(self.cache, row, slot)
+
+    def cache_dtype(self) -> torch.dtype:
+        return DTYPES[self.model.cfg.dtype]
 
     @classmethod
     def _splice_tree(cls, cache, row, slot: int) -> None:

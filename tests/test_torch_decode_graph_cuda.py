@@ -1,14 +1,16 @@
 """On a CUDA card: the engine's decode step replays a captured CUDA graph and
 gives what the model's eager ``decode_step`` gives.
 
-For each family (at smoke width; Mamba2 at its published width with two
-layers, the widths the SSD kernel is built for): before every decode step
+For each family the engine serves (at smoke width; Mamba2 at its published
+width with two layers, the widths the SSD kernel is built for): before every decode step
 the cache and the token buffer are cloned, the engine steps (its first step
 runs eagerly and captures the graph, the later ones replay it), and the
 eager step runs on the clone.  Greedy tokens are identical; every cache leaf and the logits
 agree within 1e-5 relative in fp32 (cuBLAS may pick another algorithm under
 capture).  A call with other storages raises.  The graph of the hybrid holds
-one RG-LRU launch for each recurrent block.
+one RG-LRU launch for each recurrent block.  The VLM, which the engine does
+not serve, steps through ``decode_artifacts`` after ``Model.prefill`` with
+patch embeddings, against the eager step the same way.
 
 The graph exists only on the card, so every case carries the ``cuda``
 marker and skips without one.  This file imports neither JAX nor the JAX
@@ -26,9 +28,9 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.models import Model
 from repro_torch.serve import ServeConfig, ServeEngine
-from repro_torch.serve.artifacts import DecodeGraph
+from repro_torch.serve.artifacts import DecodeGraph, decode_artifacts
 
-ARCHS = ("mamba2-1.3b", "recurrentgemma-2b", "h2o-danube-1.8b")
+ARCHS = ("mamba2-1.3b", "recurrentgemma-2b", "h2o-danube-1.8b", "moonshot-v1-16b-a3b", "whisper-medium")
 PROMPT_LENS = (8, 16, 8, 24, 8)
 TOL = 1e-5
 
@@ -98,6 +100,32 @@ def test_replayed_decode_matches_the_eager_step(cuda, arch):
     assert len(eng.completed) == len(PROMPT_LENS)
     n_rec = model.cfg.block_counts()[1] if model.cfg.family == "hybrid" else 0
     assert eng.decode_fn.captured == ({"rglru_scan": n_rec} if n_rec else {})
+
+
+@pytest.mark.cuda
+def test_vlm_replayed_decode_matches_the_eager_step(cuda):
+    model = Model(get_config("llava-next-34b").smoke())
+    cfg = model.cfg
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {
+        "tokens": torch.randint(0, cfg.vocab_size, (2, 12), device=cuda, generator=g),
+        "patch_embeds": 0.02 * torch.randn(2, cfg.vision_tokens, cfg.d_model, device=cuda, generator=g),
+    }
+    logits, cache = model.prefill(params, batch, 40)
+    step = decode_artifacts(model, cuda)
+    assert isinstance(step, DecodeGraph)
+    tok = torch.argmax(logits[:, 0, : cfg.vocab_size], dim=-1).to(torch.int32)
+    for n in range(6):
+        clone, want_tok = _clone(cache), tok.clone()
+        got, _ = step(params, cache, {"token": tok})
+        logits, clone = model.decode_step(params, clone, {"token": want_tok})
+        assert _rel(got, logits) <= TOL, f"step {n}"
+        for a, b in zip(_leaves(cache), _leaves(clone), strict=True):
+            assert _rel(a, b) <= TOL, f"step {n}"
+        tok.copy_(torch.argmax(got[:, 0, : cfg.vocab_size], dim=-1))
+    assert step.replays == 5 and step.captured == {}
+    assert cache["len"].tolist() == [cfg.vision_tokens + 12 + 6] * 2
 
 
 @pytest.mark.cuda

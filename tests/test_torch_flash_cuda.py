@@ -65,6 +65,10 @@ CASES = [  # B, S, T, H, Kv, d, causal, window
     (1, 1024, 1024, 32, 8, 80, True, 256),  # danube's heads, the window bites
     (1, 1024, 1024, 8, 8, 128, True, None),  # qwen1.5-32b's head width
     (1, 200, 333, 4, 2, 128, True, 100),  # S < T under a window, d = 128
+    (1, 1024, 1024, 16, 16, 128, True, None),  # moonshot-v1-16b-a3b's heads
+    (1, 1500, 1500, 16, 16, 64, False, None),  # whisper-medium's encoder: T = 1500 is no multiple of 64
+    (1, 448, 1500, 16, 16, 64, False, None),  # whisper's cross attention, S < T
+    (1, 1024, 1024, 56, 8, 128, True, None),  # llava-next-34b's heads, 7 queries a KV head
 ]
 
 TILE_CASES = [  # B, S, T, H, Kv, d, causal, window

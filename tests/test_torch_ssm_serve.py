@@ -78,10 +78,23 @@ def test_every_config_matches_jax(arch):
     assert cfg.active_params() == want.active_params()
 
 
-def test_other_families_are_refused():
-    for arch in ("moonshot-v1-16b-a3b", "whisper-medium", "llava-next-34b"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            Model(get_config(arch).smoke())
+@pytest.mark.parametrize("arch", ARCHS)
+def test_every_family_serves_a_prefill_and_a_decode_step(arch):
+    """Every config's smoke model builds, prefills (with the stub frames or
+    patch embeddings its family reads) and decodes one step."""
+    model = Model(get_config(arch).smoke())
+    cfg = model.cfg
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = {"tokens": torch.arange(6)[None] % cfg.vocab_size}
+    if cfg.family == "audio":
+        batch["frames"] = torch.zeros(1, cfg.encdec.enc_positions, cfg.d_model)
+    if cfg.vision_tokens:
+        batch["patch_embeds"] = torch.zeros(1, cfg.vision_tokens, cfg.d_model)
+    logits, cache = model.prefill(params, batch, 16)
+    assert tuple(logits.shape) == (1, 1, cfg.padded_vocab)
+    logits, cache = model.decode_step(params, cache, {"token": torch.zeros(1, dtype=torch.int32)})
+    assert tuple(logits.shape) == (1, 1, cfg.padded_vocab) and bool(torch.isfinite(logits).all())
+    assert int(cache["len"][0]) == 6 + cfg.vision_tokens + 1
 
 
 @pytest.mark.parametrize("S", [8, 16])

@@ -119,7 +119,8 @@ def _served(arch, tmp_path_factory, prompt_lens=PROMPT_LENS, knobs=None, tracers
     return out
 
 
-@pytest.fixture(scope="module", params=["recurrentgemma-2b", "h2o-danube-1.8b"])
+@pytest.fixture(scope="module", params=["recurrentgemma-2b", "h2o-danube-1.8b", "moonshot-v1-16b-a3b",
+                                        "whisper-medium"])
 def family_traces(request, tmp_path_factory):
     return _served(request.param, tmp_path_factory)
 
@@ -161,6 +162,10 @@ def test_dispatch_rows_of_the_other_families_carry_the_jax_engines_bytes(family_
     ("mamba2-1.3b", "bfloat16"),
     ("recurrentgemma-2b", "bfloat16"),
     ("h2o-danube-1.8b", "bfloat16"),
+    ("moonshot-v1-16b-a3b", "float32"),
+    ("whisper-medium", "float32"),
+    ("moonshot-v1-16b-a3b", "bfloat16"),
+    ("whisper-medium", "bfloat16"),
 ])
 def test_decode_step_writes_the_engines_cache_in_place(arch, dtype):
     """Every cache leaf keeps its storage from step to step, and the decode
