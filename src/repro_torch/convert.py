@@ -1,4 +1,5 @@
-"""Carry JAX parameter and cache trees across to the port's tensors.
+"""Carry JAX parameter, train-state and cache trees across to the port's
+tensors.
 
 The JAX package keeps its weights as nested dicts and lists of arrays; the
 port keeps the same nesting (for Mamba2 ``embed.tok/head``, ``blocks.{ln.w,
@@ -38,6 +39,12 @@ def _tree(np_tree, device):
 
 def params_from_jax(np_tree: dict, device) -> dict:
     """A JAX parameter tree (numpy leaves) as the port's parameter dict."""
+    return _tree(np_tree, torch.device(device))
+
+
+def state_from_jax(np_tree: dict, device) -> dict:
+    """A JAX train state (``params`` and ``opt.{mu, nu, count}``, numpy
+    leaves) as the port's train state."""
     return _tree(np_tree, torch.device(device))
 
 

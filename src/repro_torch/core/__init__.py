@@ -2,6 +2,7 @@
 
     from repro_torch.core import TraceConfig, Tracer, trace_session   # collection
     from repro_torch.core import TracedStep, kernel_span              # interception
+    from repro_torch.core import train_step_span, data_next_span      # framework spans
     from repro_torch.core import traced_device_put, traced_device_get # §1.1 memcpy
     from repro_torch.core import MasterServer, ServeOptions, StreamClient    # streaming
     from repro_torch.core import AdaptiveController, WidenSamplingPolicy     # §6 adaptive
@@ -32,12 +33,18 @@ from .api_model import (  # noqa: F401
 )
 from .interception import (  # noqa: F401
     TracedStep,
+    checkpoint_restore_span,
+    checkpoint_save_span,
+    data_next_span,
     decode_step_span,
+    eval_step_span,
     kernel_span,
+    optimizer_update_span,
     prefill_span,
     record_alloc,
     traced_device_get,
     traced_device_put,
+    train_step_span,
 )
 from .stream import (  # noqa: F401
     MasterServer,

@@ -6,7 +6,9 @@ just names and timestamps (§1.1's zeCommandListAppendMemoryCopy example).
 
 Interception points of the PyTorch stack:
 
-  ust_repro       framework API   — serve calls (prefill / decode_step)
+  ust_repro       framework API   — train / eval steps, data, optimizer,
+                                    checkpoints, serve calls (prefill /
+                                    decode_step)
   ust_torchrt     torch dispatch  — step dispatches and first-call
                                     "compiles", CUDA-event fences, h2d/d2h
                                     copies and allocations
@@ -91,7 +93,16 @@ class _TP:
         self.transfer_span = r["ust_kernel:transfer_span"]
         self.fw = {
             name: (r[f"ust_repro:{name}_entry"], r[f"ust_repro:{name}_exit"])
-            for name in ("prefill", "decode_step")
+            for name in (
+                "train_step",
+                "eval_step",
+                "data_next",
+                "checkpoint_save",
+                "checkpoint_restore",
+                "optimizer_update",
+                "prefill",
+                "decode_step",
+            )
         }
 
 
@@ -135,12 +146,14 @@ class TracedStep:
         *,
         device: torch.device,
         flops: int = 0,
+        bytes_accessed: int = 0,
         donate_argnums: Sequence[int] = (),
     ):
         self._fn = fn
         self.name = name or getattr(fn, "__name__", "step")
         self.device = torch.device(device)
         self.flops = flops
+        self.bytes_accessed = bytes_accessed
         self.donate_argnums = frozenset(donate_argnums)
         self._sizes: Optional[tuple] = None  # (argument bytes, donated bytes) of the first call
         self._called_once = False
@@ -165,7 +178,7 @@ class TracedStep:
             t.compile_exit(0, False)
         if self.device.type == "cuda":
             self._fence(out, tr)
-        t.kernel_span(ts_begin, now(), self.name, 1, 1, 1, self.flops, 0)
+        t.kernel_span(ts_begin, now(), self.name, 1, 1, 1, self.flops, self.bytes_accessed)
         t.dispatch_exit(0)
         return out
 
@@ -317,6 +330,30 @@ class _FrameworkSpan:
             vals = [self.outs.get(n, 0) for n in self._out_names]
             self._exit_rec(status, *vals)
         return False
+
+
+def train_step_span(step: int, global_batch: int, seq_len: int) -> _FrameworkSpan:
+    return _FrameworkSpan("train_step", (step, global_batch, seq_len), ("loss", "grad_norm"))
+
+
+def eval_step_span(step: int, global_batch: int) -> _FrameworkSpan:
+    return _FrameworkSpan("eval_step", (step, global_batch), ("loss",))
+
+
+def data_next_span(step: int) -> _FrameworkSpan:
+    return _FrameworkSpan("data_next", (step,), ("tokens",))
+
+
+def checkpoint_save_span(step: int, path: str, nbytes: int) -> _FrameworkSpan:
+    return _FrameworkSpan("checkpoint_save", (step, path, nbytes), ())
+
+
+def checkpoint_restore_span(path: str) -> _FrameworkSpan:
+    return _FrameworkSpan("checkpoint_restore", (path,), ("step",))
+
+
+def optimizer_update_span(step: int) -> _FrameworkSpan:
+    return _FrameworkSpan("optimizer_update", (step,), ("lr",))
 
 
 def prefill_span(request_id: int, batch: int, seq_len: int) -> _FrameworkSpan:

@@ -2,7 +2,12 @@
 
 A CUDA tensor goes to the hand-written kernel and a CPU tensor to the plain
 PyTorch version in ``ref``; any other device raises.  There is no switch
-and no fallback: on the card the kernel runs or the call raises.  Each
+and no fallback: on the card the kernel runs or the call raises.  No kernel
+has a backward pass (no Pallas kernel of the JAX package has one either,
+and ``jax.grad`` cannot differentiate them), so a CUDA call that autograd
+would have to differentiate raises rather than return an output that
+silently stops the gradient; on the CPU the plain versions are
+differentiated as usual.  Each
 kernel-backed op emits a THAPI ``ust_kernel:launch`` span with the same
 analytic FLOPs and bytes as the JAX package's ``ops`` (so the spans compare);
 eager PyTorch records one span per call where JAX records one per trace.
@@ -30,6 +35,15 @@ def _on_card(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
+def _no_grad_through(name: str, *inputs) -> None:
+    """Raises when autograd records and an input requires a gradient."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{name}: the hand-written kernel has no backward pass, as the JAX package's Pallas "
+            "kernel has none; call it under torch.no_grad() or on inputs that need no gradient"
+        )
+
+
 # ---------------------------------------------------------------------------
 # Flash attention
 # ---------------------------------------------------------------------------
@@ -42,6 +56,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v)) * 2
     with kernel_span("flash_attention", (B, H, S), flops, nbytes):
         if _on_card(q):
+            _no_grad_through("flash_attention", q, k, v)
             return _flash.flash_attention(q, k, v, causal=causal, window=window)
         return _ref.flash_attention_ref(q, k, v, causal=causal, window=window)
 
@@ -57,6 +72,7 @@ def rglru(x, r, i, lam, h0=None):
     nbytes = 3 * B * S * C * x.element_size()
     with kernel_span("rglru_scan", (B, S, C), flops, nbytes):
         if _on_card(x):
+            _no_grad_through("rglru", x, r, i, lam, h0)
             return rglru_scan(x, r, i, lam, h0=h0)
         return _ref.rglru_ref(x, r, i, lam, h0=h0)
 
@@ -73,6 +89,7 @@ def ssd(x, dt, A_log, Bm, Cm, D, *, chunk: int = 64, state0=None):
     nbytes = (x.numel() + Bm.numel() * 2) * x.element_size() * 2
     with kernel_span("ssd_scan", (B, H, S // chunk), flops, nbytes):
         if _on_card(x):
+            _no_grad_through("ssd", x, dt, A_log, Bm, Cm, D, state0)
             return ssd_scan(x, dt, A_log, Bm, Cm, D, chunk=chunk, state0=state0)
         return _ref.ssd_ref(x, dt, A_log, Bm, Cm, D, chunk=chunk, state0=state0)
 

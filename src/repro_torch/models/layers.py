@@ -1,10 +1,13 @@
-"""Shared building blocks: RMSNorm and LayerNorm, RoPE, GQA attention, the
-SwiGLU, GeGLU and biased GELU MLPs, the (ring) KV cache and embeddings.
+"""Shared building blocks: RMSNorm and LayerNorm, RoPE, GQA attention
+(materialized and blocked), the SwiGLU, GeGLU and biased GELU MLPs, the
+(ring) KV cache, embeddings and the cross-entropy loss.
 
 Pure functions on tensors (params in, tensors out), mirroring the JAX
-package's ``models/layers.py`` for the pieces the serving families use.
-bf16 rounds where the JAX functions round: the QKᵀ and PV products run in
-the input dtype, the softmax and RoPE in fp32.
+package's ``models/layers.py``.  bf16 rounds where the JAX functions round:
+the QKᵀ and PV products run in the input dtype, the softmax, RoPE and the
+loss in fp32.  Every function here is plain PyTorch, so autograd
+differentiates it: training runs ``attend_cfg`` as the JAX package's
+``forward_train`` does, and no kernel.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -54,6 +58,17 @@ def layer_slice(tree, l: int):
     if isinstance(tree, torch.Tensor):
         return tree[l]
     return {k: layer_slice(v, l) for k, v in tree.items()}
+
+
+def layer_slices(tree, n: int) -> list:
+    """``[layer_slice(tree, l) for l in range(n)]`` through one ``unbind``
+    a leaf: under autograd each layer's gradient then lands in the stacked
+    leaf by one ``stack``, where ``n`` indexings would each add a zero
+    tensor of the whole stack."""
+    if isinstance(tree, torch.Tensor):
+        return list(tree.unbind(0))
+    per_key = {k: layer_slices(v, n) for k, v in tree.items()}
+    return [{k: v[l] for k, v in per_key.items()} for l in range(n)]
 
 
 def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -141,6 +156,58 @@ def attend(
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v)
     return out.reshape(B, S, H, hd)
+
+
+def attend_chunked(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    chunk: int = 2048,
+) -> torch.Tensor:
+    """The JAX ``attend_chunked``: KV blocks of ``chunk`` rows with an online
+    fp32 softmax, so the live score block is ``[S, chunk]``.  A ``T`` that
+    ``chunk`` does not divide is one block."""
+    B, S, H, hd = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    if T % chunk:
+        chunk = T
+    G = H // Kv
+    qg = q.reshape(B, S, Kv, G, hd)
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))  # the JAX fp32 scale
+    qpos = torch.arange(S, device=q.device)[:, None] + (T - S)
+    m = torch.full((B, Kv, G, S), -1e30, dtype=torch.float32, device=q.device)
+    lsum = torch.zeros((B, Kv, G, S), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Kv, G, S, hd), dtype=torch.float32, device=q.device)
+    for j0 in range(0, T, chunk):
+        kc, vc = k[:, j0 : j0 + chunk], v[:, j0 : j0 + chunk]
+        s = torch.einsum("bskgd,btkd->bkgst", qg, kc).float() * scale
+        kpos = j0 + torch.arange(chunk, device=q.device)[None, :]
+        mask = torch.ones((S, chunk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask = mask & (kpos <= qpos)
+        if window is not None:
+            mask = mask & (kpos > qpos - window)
+        s = torch.where(mask, s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        lsum = lsum * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgst,btkd->bkgsd", p.to(q.dtype), vc).float()
+        m = m_new
+    out = (acc / torch.clamp(lsum, min=1e-30)[..., None]).to(q.dtype)
+    return out.movedim(3, 1).reshape(B, S, H, hd)
+
+
+def attend_cfg(cfg: ModelConfig, q, k, v, *, causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+    """Train attention by the config, as the JAX ``attend_cfg``: blocked when
+    ``attn_impl`` is ``"chunked"`` and the keys outnumber ``attn_chunk``,
+    else materialized."""
+    if cfg.attn_impl == "chunked" and k.shape[1] > cfg.attn_chunk:
+        return attend_chunked(q, k, v, causal=causal, window=window, chunk=cfg.attn_chunk)
+    return attend(q, k, v, causal=causal, window=window)
 
 
 def attn_specs(cfg: ModelConfig, stacked: Optional[int] = None, cross: bool = False) -> dict:
@@ -270,3 +337,17 @@ def unembed(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.tied_embeddings:
         return x @ p["tok"].T
     return x @ p["head"]
+
+
+def xent_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy over the real vocabulary: the padded columns are
+    set to -1e30 in the logits' dtype, then logsumexp in fp32."""
+    V = cfg.vocab_size
+    logits = logits[..., : cfg.padded_vocab]
+    if logits.shape[-1] > V:
+        pad = torch.arange(logits.shape[-1], device=logits.device) >= V
+        logits = logits.masked_fill(pad, -1e30)
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)

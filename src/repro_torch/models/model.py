@@ -1,11 +1,18 @@
-"""Model facade over the serving families: SSM, hybrid, dense, MoE, audio
+"""Model facade over the families: SSM, hybrid, dense, MoE, audio
 (encoder–decoder) and VLM (the dense model with a patch-embedding prefix).
 
     m = Model(cfg)
     m.param_specs()            spec tree (shapes/init in one declaration)
     m.init(generator)          tensors on the generator's device
+    m.shapes()                 the parameters as meta tensors
+    m.loss(params, batch)      (loss, metrics), differentiable by autograd
     m.prefill / m.decode_step  serving steps
+    m.batch_specs(shape)       input Spec tree for a ShapeSpec
     m.cache_specs(shape)       serving-state Spec tree for decode shapes
+
+Training covers the dense and VLM families, whose JAX ``forward_train``
+runs no Pallas kernel; ``logits`` refuses the others, each naming the
+ROADMAP entry that takes it.
 """
 
 from __future__ import annotations
@@ -14,7 +21,18 @@ import torch
 
 from . import encdec, hybrid, moe, ssm, transformer
 from .config import ModelConfig, ShapeSpec
+from .layers import xent_loss
+from .param import Spec
 from .param import init as spec_init
+from .param import shapes as spec_shapes
+
+#: the families whose training is not ported, and the ROADMAP entry for each
+_NOT_TRAINED = {
+    "moe": "ROADMAP item 4b (the one-device _moe_dense forward_train)",
+    "audio": "ROADMAP item 4b (the encoder-decoder forward_train)",
+    "ssm": "ROADMAP section 4, open question: the SSD kernel has no backward, in JAX as here",
+    "hybrid": "ROADMAP section 4, open question: the RG-LRU kernel has no backward, in JAX as here",
+}
 
 _FAMILY = {
     "ssm": ssm,
@@ -39,6 +57,34 @@ class Model:
         """Weights on ``generator.device``, drawn from ``generator``."""
         return spec_init(self.param_specs(), generator, self.cfg.dtype)
 
+    def shapes(self) -> dict:
+        return spec_shapes(self.param_specs(), self.cfg.dtype)
+
+    # -- training ---------------------------------------------------------------
+    def check_trainable(self) -> None:
+        """Raises ``NotImplementedError`` for a family whose training is not
+        ported."""
+        where = _NOT_TRAINED.get(self.cfg.family)
+        if where is not None:
+            raise NotImplementedError(
+                f"{self.cfg.name}: training the {self.cfg.family} family is not ported ({where})"
+            )
+
+    def logits(self, params: dict, batch: dict):
+        """(logits, auxiliary loss) over the whole sequence."""
+        self.check_trainable()
+        out = self.mod.forward_train(self.cfg, params, batch)
+        return out, torch.zeros((), dtype=torch.float32, device=out.device)
+
+    def loss(self, params: dict, batch: dict):
+        """(mean cross-entropy, {"ce", "aux"}); a VLM's loss covers only the
+        text positions."""
+        logits, aux = self.logits(params, batch)
+        if self.cfg.vision_tokens:
+            logits = logits[:, self.cfg.vision_tokens :]
+        ce = xent_loss(self.cfg, logits, batch["labels"])
+        return ce, {"ce": ce, "aux": aux}
+
     # -- serving -----------------------------------------------------------------
     def prefill(self, params: dict, batch: dict, cache_len: int):
         return self.mod.prefill(self.cfg, params, batch, cache_len)
@@ -46,5 +92,36 @@ class Model:
     def decode_step(self, params: dict, cache: dict, batch: dict):
         return self.mod.decode_step(self.cfg, params, cache, batch)
 
+    # -- input/cache declarations --------------------------------------------------
+    def batch_specs(self, shape: ShapeSpec) -> dict:
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "train":
+            out = {
+                "tokens": Spec((B, self._text_len(S)), ("batch", "seq"), dtype="int32"),
+                "labels": Spec((B, self._text_len(S)), ("batch", "seq"), dtype="int32"),
+            }
+            self._add_frontend(out, B)
+            return out
+        if shape.kind == "prefill":
+            out = {"tokens": Spec((B, self._text_len(S)), ("batch", "seq"), dtype="int32")}
+            self._add_frontend(out, B)
+            return out
+        return {"token": Spec((B,), ("batch",), dtype="int32")}
+
+    def _text_len(self, S: int) -> int:
+        return S - self.cfg.vision_tokens if self.cfg.vision_tokens else S
+
+    def _add_frontend(self, out: dict, B: int) -> None:
+        cfg = self.cfg
+        if cfg.family == "audio":
+            out["frames"] = Spec((B, cfg.encdec.enc_positions, cfg.d_model), ("batch", None, "embed"))
+        if cfg.vision_tokens:
+            out["patch_embeds"] = Spec((B, cfg.vision_tokens, cfg.d_model), ("batch", None, "embed"))
+
     def cache_specs(self, shape: ShapeSpec) -> dict:
         return self.mod.cache_specs(self.cfg, shape.global_batch, shape.seq_len)
+
+    # -- analytics ----------------------------------------------------------------
+    def model_flops_per_token(self) -> int:
+        """6·N_active, the JAX package's MODEL_FLOPS convention."""
+        return 6 * self.cfg.active_params()

@@ -86,3 +86,14 @@ def zeros(tree, dtype: str, device):
     if isinstance(tree, list):
         return [zeros(v, dtype, device) for v in tree]
     return {k: zeros(v, dtype, device) for k, v in tree.items()}
+
+
+def shapes(tree, dtype: str):
+    """The tree as meta tensors: each leaf's shape and dtype, no storage
+    (the JAX ``ShapeDtypeStruct`` tree)."""
+    if isinstance(tree, Spec):
+        return torch.empty(tree.shape, dtype=DTYPES[tree.dtype or dtype], device="meta")
+    if isinstance(tree, list):
+        return [shapes(v, dtype) for v in tree]
+    return {k: shapes(v, dtype) for k, v in tree.items()}
+

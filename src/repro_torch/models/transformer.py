@@ -1,6 +1,11 @@
 """Dense decoder-only LM (llama / qwen / mistral / stablelm / h2o-danube
 families) and the VLM prefix (llava-next: precomputed patch embeddings
-prepended to the prompt), serving path.
+prepended to the prompt): training forward and serving path.
+
+Training (``block``, ``hidden_states``, ``forward_train``) is the JAX
+package's: attention by ``layers.attend_cfg``, plain PyTorch that autograd
+differentiates, and no kernel; the config's ``remat`` chooses what the
+backward recomputes.
 
 Block: norm → GQA attention with RoPE (optionally a sliding window) →
 residual → norm → SwiGLU MLP → residual.  The JAX package scans over the
@@ -24,6 +29,7 @@ values, rolled so that position ``p`` sits at row ``p % eff``, or fills rows
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 
@@ -32,6 +38,7 @@ from .layers import (
     apply_mlp,
     apply_norm,
     attend,
+    attend_cfg,
     attn_out,
     attn_specs,
     cache_update,
@@ -39,6 +46,7 @@ from .layers import (
     embed_specs,
     kv_cache_specs,
     layer_slice,
+    layer_slices,
     mlp_specs,
     norm_spec,
     prefill_rows,
@@ -59,6 +67,54 @@ def specs(cfg: ModelConfig) -> dict:
         },
         "ln_f": norm_spec(cfg),
     }
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``remat="full"`` keeps only each block's inputs and recomputes the
+    block in the backward pass (``jax.checkpoint``); ``"none"`` keeps every
+    activation."""
+    if cfg.remat == "full":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            f"{cfg.name}: remat='dots' (keep the matmul outputs) is ported with the sharded "
+            "trainer, ROADMAP item 5; a config that sets it does not train on one card"
+        )
+    return fn
+
+
+def block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(cfg, p["ln1"], x)
+    q, k, v = qkv(cfg, p["attn"], h, positions)
+    ctx = attend_cfg(cfg, q, k, v, causal=True, window=cfg.sliding_window)
+    x = x + attn_out(p["attn"], ctx)
+    h = apply_norm(cfg, p["ln2"], x)
+    return x + apply_mlp(cfg, p["mlp"], h)
+
+
+def hidden_states(cfg: ModelConfig, params: dict, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """The blocks in order (a loop over the layers where JAX scans), then
+    the final norm."""
+    body = _remat(cfg, lambda pl, h: block(cfg, pl, h, positions))
+    for pl in layer_slices(params["blocks"], cfg.num_layers):
+        x = body(pl, x)
+    return apply_norm(cfg, params["ln_f"], x)
+
+
+def forward_train(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    """Logits ``[B, S, padded_vocab]`` over the whole sequence, after the
+    patch embeddings where the config has vision tokens."""
+    x = embed(params["embed"], batch["tokens"])
+    if cfg.vision_tokens:
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x = hidden_states(cfg, params, x, positions)
+    return unembed(cfg, params["embed"], x)
 
 
 # ---------------------------------------------------------------------------

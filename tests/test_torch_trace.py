@@ -387,6 +387,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(srcs) > 20
     rel = {os.path.relpath(p, os.path.join(ROOT, "src", "repro_torch")) for p in srcs}
     assert {"core/stream.py", "core/adaptive.py", "examples/serve_traced.py"} <= rel
+    assert {"tree.py", "optim/adamw.py", "optim/schedule.py", "optim/compression.py", "data/pipeline.py",
+            "checkpoint/checkpointer.py", "train/train_step.py", "train/trainer.py", "launch/train.py",
+            "examples/quickstart.py"} <= rel
     bad = []
     for p in srcs:
         with open(p) as f:
