@@ -121,7 +121,23 @@ Phases, each fatal on failure:
      memory and a profiled step's shares printed; then the step-8
      checkpoint restored from disk (bit for bit the trained weights) into
      ``ServeEngine`` for prompts of 100, 512, 1024 and 512 tokens, 8 new
-     tokens each, the flash kernel 24 x the prefills.
+     tokens each, the flash kernel 24 x the prefills;
+ 10. [remediation]: full-width h2o-danube-1.8b trained as in [train] (no
+     periodic checkpoint, no failure) under a default-mode trace on the
+     sampled rung whose remediation engine, ticked by the tracer's consumer
+     thread, escalates the rung to full, asks the trainer to drain and then
+     replaces it as a driver thread flags the rank step after step: the
+     drain checkpoint is written at step k on the loop's own thread, the
+     trainer freed, a new one built, admit_replacement restores step k and
+     the replacement runs to the end.  Gates: the decisions escalate,
+     drain, replace (then the admission) each one ust_repro:remediation
+     record, the rung change and every later step in the trace, the losses
+     equal [train]'s, the save and restore times printed.  Then
+     ``python -m repro_torch.examples.distributed_train`` on the card in
+     its own process for each mode: --chaos with a slowdown (ladder to
+     eviction), --chaos --chaos-replace with a kill (a replacement, the
+     zombie fenced), --live with a slow rank, and the default mode (200
+     steps, the loss falls, validation clean), each with its wall time.
 The reduced-depth fp32 models of phases 2-4, 8 and 9 are held to the CPU by
 ``_rel`` (max|card - cpu| / max|cpu|) under ``CPU_REL_LIMIT``.
 In phases 2-4 the ``[graph]`` phase also serves each full-width model with
@@ -2543,7 +2559,7 @@ def _profile_shares(model, trainer) -> None:
     del grads
 
 
-def train_full_width() -> int:
+def train_full_width() -> tuple:
     """Full-width h2o-danube-1.8b (24 layers, bf16 weights, fp32 AdamW
     moments) trained through ``Trainer`` for TRAIN_STEPS steps of
     TRAIN_BATCH x TRAIN_SEQ ``SyntheticPipeline`` tokens under a default-mode
@@ -2554,7 +2570,7 @@ def train_full_width() -> int:
     first; the tally's framework rows (the replayed and failed steps, the
     saves and the restore); the checkpoint's weights equal the trained
     state's bit for bit; 24 flash launches a prefill in serving, none in
-    decode.  Returns the flash launches."""
+    decode.  Returns the flash launches and the loss of each step."""
     import numpy as np
     import torch
 
@@ -2677,18 +2693,267 @@ def train_full_width() -> int:
               f"tokens), {sum(len(r.out_tokens) for r in done)} tokens in {serve_s:.2f} s; first tokens "
               f"{[r.out_tokens[:4] for r in done]}")
         del eng, params, restored
-        return flash
+        return flash, {h["step"]: h["loss"] for h in res["history"]}
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
 
-def train_phase() -> int:
+def train_phase() -> tuple:
     """[train]: the two-layer card-against-CPU step, then full-width training
-    and serving of its checkpoint; returns the flash launches."""
+    and serving of its checkpoint; returns the flash launches and the loss
+    of each step."""
     release("before [train]")
     check_train_against_cpu()
     release("after the two-layer train step")
     return train_full_width()
+
+
+# ---------------------------------------------------------------------------
+# [remediation]: the closed loop on full-width h2o-danube-1.8b, in process,
+# then the distributed_train example's modes on the card
+# ---------------------------------------------------------------------------
+
+#: the driver thread flags the trainer's rank as a straggler at every step
+#: boundary from this step on
+REMEDIATION_FLAG_FROM = 2
+REMEDIATION_SOURCE = "rank0"
+#: each wait for the loop (the replace decision after the drain checkpoint)
+REMEDIATION_WAIT_S = 120.0
+#: the replacement's losses against [train]'s at the same steps, max
+#: |d| / |train|: the same kernels on the same data give the same bits
+REMEDIATION_LOSS_REL_LIMIT = 0.0
+EXAMPLE = "repro_torch.examples.distributed_train"
+#: each example run's own time limit
+EXAMPLE_TIMEOUT_S = 300
+#: (label, arguments, lines its standard output must hold)
+EXAMPLE_RUNS = [
+    ("chaos slowdown", ["--chaos", "--chaos-ranks", "3", "--chaos-steps", "25", "--chaos-seed", "0",
+                        "--inject-fault", "slowdown:rank=1,after=5,factor=8"],
+     ["OK: ladder walked", "(drain before evict)", "steps re-dealt", "every one traced",
+      "steps completed = 3 ranks"]),
+    ("chaos replace", ["--chaos", "--chaos-ranks", "3", "--chaos-steps", "25", "--chaos-seed", "0",
+                       "--chaos-replace", "--inject-fault", "kill:rank=1,after=8", "--chaos-timeout", "90"],
+     ["replace_admit", "(drain before replace, no eviction)", "1 replacement admitted",
+      "3/3 ranks healthy at exit", "zombie fenced (fence_rejects=", "poison row absent from the composite",
+      "steps completed = 3 ranks", "every one traced"]),
+    ("live", ["--live", "--live-steps", "6", "--live-slow-rank", "1"],
+     ["live composite matches offline combine", "per-rank sums equal the merged composite", "OK: straggler",
+      "rank1 flagged"]),
+    ("default", ["--steps", "200"], ["validation: clean"]),
+]
+
+
+def drain_and_replace(train_losses: dict) -> None:
+    """Full-width h2o-danube-1.8b trained as in [train] (same constants and
+    seeds, no periodic checkpoint, no injected failure) under a default-mode
+    trace on the sampled rung whose ``remediation`` engine (escalate after
+    one flagged window, short cooldowns) closes the loop in the tracer's
+    consumer thread: escalate sets the session's rung to full, drain asks
+    the trainer to drain at the next step boundary, replace raises a flag
+    for this thread.  A driver thread flags the rank as a straggler at each
+    step boundary from REMEDIATION_FLAG_FROM on, and as drained once the
+    drain checkpoint is committed.  When ``run`` returns drained at step k,
+    the trainer is freed, a new one built, ``admit_replacement(1)`` restores
+    step k and ``note("replace_admit")`` records it; the replacement runs to
+    TRAIN_STEPS.  Gates: the decisions escalate, drain, replace, each one
+    ``ust_repro:remediation`` record in that order, then the admission's;
+    the rung change is in the trace, and every step after the one the
+    escalation landed in has its ``train_step`` record while the sampled
+    steps before it do not all have one; one checkpoint save (the drain's)
+    and one restore (the admission's) in the trace, whose spans give their
+    times; 0 < k < TRAIN_STEPS; the replacement restores step k; every
+    step's loss equals [train]'s within REMEDIATION_LOSS_REL_LIMIT."""
+    import threading
+
+    import torch
+
+    from repro_torch import trace, tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import RUNG_DRAIN, RUNG_ESCALATE, RUNG_REPLACE, RemediationEngine, RemediationHooks
+    from repro_torch.core import TraceConfig, Tracer
+    from repro_torch.core.babeltrace import CTFSource
+    from repro_torch.core.plugins.tally import tally_trace
+    from repro_torch.models import Model, ShapeSpec
+    from repro_torch.train import TrainConfig, Trainer, TrainerConfig
+
+    cfg = get_config(TRAIN_ARCH)
+    model = Model(cfg)
+    shape = ShapeSpec("chip", "train", TRAIN_SEQ, TRAIN_BATCH)
+    work = tempfile.mkdtemp(prefix="thapi_remediation_")
+    ckpt_dir, trace_dir = os.path.join(work, "ckpt"), os.path.join(work, "trace")
+
+    def new_trainer():
+        return Trainer(model, shape, DEVICE, TrainConfig(peak_lr=TRAIN_LR, warmup=2, total_steps=100),
+                       TrainerConfig(steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS + 1, ckpt_dir=ckpt_dir))
+
+    box = {"trainer": None, "escalated_at": None}
+    replace_asked, stop = threading.Event(), threading.Event()
+
+    def escalate(target, reason):
+        box["escalated_at"] = box["trainer"].step  # the step running when the rung changes
+        trace.set_mode("full")
+        return True
+
+    def drain(target, reason):
+        box["trainer"].request_drain()  # an event: the save runs on the main thread
+        return True
+
+    def replace(target, reason):
+        replace_asked.set()
+        return True
+
+    # the driver reports no healthy window: the rank stays suspect until it is replaced
+    engine = RemediationEngine(RemediationHooks(escalate=escalate, drain=drain, replace=replace),
+                               cooldown_s=0.05, backoff_cap_s=0.05, escalate_after=1, healthy_windows=10**6)
+
+    def driver():  # flags the first trainer's rank until it is replaced; the replacement is healthy
+        t, seen = box["trainer"], -1
+        while not stop.is_set() and not replace_asked.is_set():
+            if t.drained:
+                engine.ingest_flag(REMEDIATION_SOURCE, "drained", "awaiting replacement")
+            elif not t.draining.is_set() and t.step != seen:
+                seen = t.step
+                if seen >= REMEDIATION_FLAG_FROM:
+                    engine.ingest_flag(REMEDIATION_SOURCE, "straggler", f"step {seen}")
+            time.sleep(0.01)
+
+    try:
+        t0 = time.perf_counter()
+        box["trainer"] = first = new_trainer()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        state_gb = sum(t.numel() * t.element_size() for t in tree.leaves(first.state)) / 1e9
+        thread = threading.Thread(target=driver, name="remediation-driver", daemon=True)
+        with Tracer(TraceConfig(out_dir=trace_dir, mode="default", fidelity="sampled", remediation=engine)):
+            thread.start()
+            res = first.run()
+            t_drained = time.perf_counter()
+            k = first.step
+            if not res["drained"] or not 0 < k < TRAIN_STEPS:
+                raise AssertionError(f"[remediation] run returned drained={res['drained']} at step {k}")
+            if not replace_asked.wait(REMEDIATION_WAIT_S):
+                raise AssertionError(f"[remediation] no replace decision within {REMEDIATION_WAIT_S:g} s: "
+                                     f"{engine.render_log()}")
+            losses = {h["step"]: h["loss"] for h in res["history"]}
+            thread.join()  # the driver holds the drained trainer until it sees the decision
+            box["trainer"] = None
+            del first, res
+            release("the drained trainer freed")
+            t = time.perf_counter()
+            box["trainer"] = second = new_trainer()
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t
+            restored = second.admit_replacement(1)
+            engine.note("replace_admit", REMEDIATION_SOURCE, f"incarnation 1 restored step {restored}")
+            admit_s = time.perf_counter() - t_drained
+            # restored: ``run`` neither restores again nor writes a final
+            # checkpoint, so the drain's is the only one this phase writes
+            second.ckpt = None
+            res2 = second.run()
+        wall = time.perf_counter() - t0
+        losses.update({h["step"]: h["loss"] for h in res2["history"]})
+        if restored != k or second.step != TRAIN_STEPS or res2["steps_run"] != TRAIN_STEPS - k:
+            raise AssertionError(f"[remediation] restored step {restored}, ran {res2['steps_run']} to "
+                                 f"{second.step}: want {k}, {TRAIN_STEPS - k} to {TRAIN_STEPS}")
+        names = [a.action for a in engine.actions]
+        if names != [RUNG_ESCALATE, RUNG_DRAIN, RUNG_REPLACE, "replace_admit"] or not all(a.ok for a in engine.actions):
+            raise AssertionError(f"[remediation] decisions {names}:\n{engine.render_log()}")
+        rows, steps_seen, rung_rows, polls = [], [], [], 0
+        for e in CTFSource(trace_dir):
+            if e.name == "ust_repro:remediation":
+                rows.append(e.asdict())
+            elif e.name == "ust_repro:train_step_entry":
+                steps_seen.append(e.asdict()["step"])
+            elif e.name == "ust_repro:advisory":
+                rung_rows.append(e.asdict())
+            elif e.name.startswith("ust_repro:poll_ready"):
+                polls += 1
+        if [r["action"] for r in rows] != names or any(r["target"] != REMEDIATION_SOURCE for r in rows):
+            raise AssertionError(f"[remediation] trace rows {rows}, want one for each of {names}")
+        e_step = box["escalated_at"]  # at least REMEDIATION_FLAG_FROM: the first flag escalates
+        before = [s for s in steps_seen if s < e_step]
+        if (not any("sampled->full" in str(r) for r in rung_rows)
+                or not set(range(e_step + 1, TRAIN_STEPS)) <= set(steps_seen) or len(before) >= e_step):
+            raise AssertionError(f"[remediation] escalation at step {e_step}: train_step records for steps "
+                                 f"{sorted(steps_seen)}, rung rows {rung_rows}")
+        tally = tally_trace(trace_dir)
+        save, restore = (tally.apis.get(("ust_repro", api)) for api in ("checkpoint_save", "checkpoint_restore"))
+        if save is None or restore is None or (save.calls, restore.calls) != (1, 1):
+            raise AssertionError(f"[remediation] checkpoint rows: save {save}, restore {restore}; want the drain's "
+                                 f"and the admission's")
+        rel = max(abs(losses[s] - train_losses[s]) / abs(train_losses[s]) for s in range(1, TRAIN_STEPS + 1))
+        print(f"[remediation] {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}): decisions "
+              f"{' -> '.join(names)}, each one ust_repro:remediation record in the trace; escalated (sampled -> full) during step {e_step}, "
+              f"train_step records for steps {sorted(set(steps_seen))} ({len(before)} of the {e_step} sampled "
+              f"steps before it), {polls} poll_ready records (the rung is full, the mode default); drained at "
+              f"step {k}, the replacement restored step {restored} and ran to {TRAIN_STEPS}")
+        print(f"[remediation] losses {', '.join(f'{losses[s]:.4f}' for s in range(1, TRAIN_STEPS + 1))}; against "
+              f"[train]'s at the same steps max relative difference {rel:.3g} (limit "
+              f"{REMEDIATION_LOSS_REL_LIMIT:g})")
+        print(f"[remediation] trainer init {init_s:.1f} s; drain checkpoint save {save.avg_ns / 1e9:.2f} s "
+              f"({state_gb:.2f} GB of state, the loop's thread); replacement: new trainer {build_s:.1f} s, restore "
+              f"{restore.avg_ns / 1e9:.2f} s (both from the trace), admitted {admit_s:.1f} s after the drain "
+              f"returned; phase {wall:.1f} s; {card_line()}")
+        if rel > REMEDIATION_LOSS_REL_LIMIT:
+            raise AssertionError(f"[remediation] losses differ from [train]'s: {losses} against {train_losses}")
+        del second, res2
+    finally:
+        stop.set()
+        box["trainer"] = None
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_example(label: str, args: list, want: list) -> str:
+    """``python -m repro_torch.examples.distributed_train ARGS`` on the card
+    in its own process group, with a temporary directory of its own that is
+    removed after; fails unless it exits 0 within EXAMPLE_TIMEOUT_S with
+    every line of ``want`` in its standard output.  Returns that output."""
+    import signal
+
+    tmp = tempfile.mkdtemp(prefix="thapi_example_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), TMPDIR=tmp)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", EXAMPLE, *args], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env, cwd=ROOT, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        print(out[-4000:], err[-4000:], file=sys.stderr)
+        raise AssertionError(f"[example] {label}: no exit within {EXAMPLE_TIMEOUT_S} s") from None
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    missing = [w for w in want if w not in out]
+    if proc.returncode != 0 or missing or "FAIL" in out:
+        print(out[-6000:], err[-4000:], file=sys.stderr)
+        raise AssertionError(f"[example] {label}: exit {proc.returncode}, missing {missing}")
+    for line in out.splitlines():
+        if "OK" in line or line.startswith("loss:") or line.startswith("validation:") or "params on" in line:
+            print(f"[example] {label}: {line.strip()}")
+    print(f"[example] {label}: exit 0 in {wall:.1f} s ({' '.join(args)})")
+    return out
+
+
+def run_examples() -> None:
+    """Every mode of the example on the card: both chaos runs, the live run
+    and the default mode; the default mode's loss must fall."""
+    for label, args, want in EXAMPLE_RUNS:
+        out = run_example(label, args, want)
+        if label == "default":
+            m = re.search(r"^loss: ([0-9.]+) → ([0-9.]+) over (\d+) steps", out, re.M)
+            if m is None or not float(m.group(2)) < float(m.group(1)) or int(m.group(3)) != 200:
+                raise AssertionError(f"[example] default: the loss did not fall over 200 steps ({m and m.group(0)})")
+
+
+def remediation_phase(train_losses: dict) -> None:
+    """[remediation]: the drained and replaced full-width trainer, then the
+    example's modes, each after the card is freed of the last."""
+    release("before [remediation]")
+    drain_and_replace(train_losses)
+    release("before the example runs")
+    run_examples()
 
 
 def check_full_mode_fence() -> None:
@@ -2839,7 +3104,9 @@ def main(argv=()) -> int:
     flash["max_abs_err"] = max(flash["max_abs_err"], err)
     flash["shapes"] += rows
     launches["flash_attention"] += serve_new_families()
-    launches["flash_attention"] += train_phase()
+    flash_train, train_losses = train_phase()
+    launches["flash_attention"] += flash_train
+    remediation_phase(train_losses)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if not k["launches"]:

@@ -7,6 +7,8 @@
     from repro_torch.core import MasterServer, ServeOptions, StreamClient    # streaming
     from repro_torch.core import AdaptiveController, WidenSamplingPolicy     # §6 adaptive
     from repro_torch.core import ClusterAdaptiveController, StragglerRankPolicy  # cluster scope
+    from repro_torch.core import RemediationEngine, RemediationHooks  # closed loop
+    from repro_torch.core import FaultInjector, parse_fault_specs     # chaos testing
     from repro_torch.core.plugins.tally import tally_trace, render    # analysis
     python -m repro_torch.core.iprof run|tally|index|pretty|timeline|validate|combine|serve|top
 """
@@ -31,10 +33,17 @@ from .api_model import (  # noqa: F401
     builtin_trace_model,
     torchrt_model,
 )
+from .faults import (  # noqa: F401
+    FaultInjector,
+    FaultKind,
+    FaultSpec,
+    parse_fault_specs,
+)
 from .interception import (  # noqa: F401
     TracedStep,
     checkpoint_restore_span,
     checkpoint_save_span,
+    collective_span,
     data_next_span,
     decode_step_span,
     eval_step_span,
@@ -45,6 +54,15 @@ from .interception import (  # noqa: F401
     traced_device_get,
     traced_device_put,
     train_step_span,
+)
+from .remediation import (  # noqa: F401
+    RUNG_DRAIN,
+    RUNG_ESCALATE,
+    RUNG_EVICT,
+    RUNG_REPLACE,
+    RemediationAction,
+    RemediationEngine,
+    RemediationHooks,
 )
 from .stream import (  # noqa: F401
     MasterServer,

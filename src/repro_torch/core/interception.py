@@ -13,6 +13,7 @@ Interception points of the PyTorch stack:
                                     "compiles", CUDA-event fences, h2d/d2h
                                     copies and allocations
   ust_kernel      device layer    — step, kernel and transfer spans
+  ust_collective  communication   — all-reduce and the other collectives
 
 Pointer convention reproduced from the paper: host addresses start ``0x00``,
 device addresses ``0xff`` — so analysis can deduce H2D vs D2H from the
@@ -91,6 +92,10 @@ class _TP:
         self.poll_pair = p["ust_repro:poll_ready"]
         self.kernel_span = r["ust_kernel:launch_span"]
         self.transfer_span = r["ust_kernel:transfer_span"]
+        self.coll = {
+            k: r[f"ust_collective:{k}_span"]
+            for k in ("all_reduce", "all_gather", "reduce_scatter", "all_to_all", "broadcast", "barrier")
+        }
         self.fw = {
             name: (r[f"ust_repro:{name}_entry"], r[f"ust_repro:{name}_exit"])
             for name in (
@@ -297,6 +302,27 @@ def kernel_span(name: str, grid: Sequence[int] = (1, 1, 1), flops: int = 0, byte
     ts_begin = _now()
     yield
     rec(ts_begin, _now(), name, gx, gy, gz, flops, bytes_accessed)
+
+
+@contextmanager
+def collective_span(kind: str, nbytes: int, axis: str, n_devices: int):
+    """Span around a collective (``all_reduce``, ``all_gather``,
+    ``reduce_scatter``, ``all_to_all``, ``broadcast`` or ``barrier``) over
+    ``n_devices`` members of the group ``axis``."""
+    tr = active_tracer()
+    if tr is None or not tr.selected or tr.fidelity == "off":
+        yield
+        return
+    rec = tp().coll[kind]
+    _now = now
+    ts_begin = _now()
+    yield
+    if kind == "broadcast":
+        rec(ts_begin, _now(), nbytes, 0, n_devices)
+    elif kind == "barrier":
+        rec(ts_begin, _now(), axis, n_devices)
+    else:
+        rec(ts_begin, _now(), nbytes, axis, n_devices)
 
 
 # ---------------------------------------------------------------------------

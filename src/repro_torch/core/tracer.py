@@ -18,10 +18,10 @@ The tracer owns the collection side of the framework:
   * **live streaming** (§3.7+§6) — the consumer thread pushes the live tally
     to an upstream master (``stream_to``) and/or an in-process one
     (``serve_port``), and ticks the adaptive controllers (``adaptive``,
-    ``cluster_adaptive``; see core/stream.py and core/adaptive.py).
-
-The remediation loop is not ported yet: setting ``remediation`` raises
-``NotImplementedError``.
+    ``cluster_adaptive``; see core/stream.py and core/adaptive.py);
+  * **closed-loop remediation** — the consumer thread ticks a
+    ``RemediationEngine`` (``remediation``; see core/remediation.py) fed by
+    the cluster controller's flags.
 
 Usage (the iprof CLI wraps exactly this):
 
@@ -155,7 +155,11 @@ class TraceConfig:
     sampling_interval: int = 64
     #: seed for the per-thread sampling phase RNG (None = nondeterministic)
     sampling_seed: Optional[int] = None
-    #: closed-loop remediation is not ported yet: any value but None raises
+    #: closed-loop remediation: a ready core/remediation.RemediationEngine
+    #: ticked from the consumer thread and attached to this session (its
+    #: decisions land in the trace as ``ust_repro:remediation`` events).
+    #: When ``cluster_adaptive`` runs too, the controller's flag/healthy
+    #: channels are wired into the engine unless already set.
     remediation: Optional[object] = None
 
     def __post_init__(self):
@@ -167,11 +171,6 @@ class TraceConfig:
             )
         if self.sampling_interval < 1:
             raise ValueError("sampling_interval must be >= 1")
-        if self.remediation is not None:
-            raise NotImplementedError(
-                "TraceConfig.remediation is ported in a later slice (ROADMAP.md, "
-                "modules to port: item 5, distribution and control plane)"
-            )
         if self.stream_connect_retries < 0:
             raise ValueError("stream_connect_retries must be >= 0")
         if self.stream_connect_backoff_s <= 0:
@@ -286,6 +285,7 @@ class Tracer:
         self.server = None  # MasterServer when cfg.serve_port
         self.adaptive = None  # AdaptiveController when cfg.adaptive
         self.cluster = None  # ClusterAdaptiveController when cfg.cluster_adaptive
+        self.remediation = None  # RemediationEngine when cfg.remediation
         self._stream_source = ""
         self._stream_next = 0.0
         #: rank selected for tracing? (§3.2 selective rank tracing)
@@ -407,6 +407,17 @@ class Tracer:
             )
             self.cluster.bind(master=self.server)
             self.cluster.attach(self)  # advisories land in this rank's trace
+        if self.cfg.remediation is not None:
+            self.remediation = self.cfg.remediation
+            self.remediation.attach(self)  # decisions land in this rank's trace
+            if self.cluster is not None:
+                # close the loop: cluster flags feed the escalation ladder,
+                # healthy windows feed its hysteresis (unless the caller
+                # already wired its own channels)
+                if getattr(self.cluster, "on_flag", None) is None:
+                    self.cluster.on_flag = self.remediation.ingest_flag
+                if getattr(self.cluster, "on_healthy", None) is None:
+                    self.cluster.on_healthy = self.remediation.observe_healthy
         self._stop_evt.clear()
         self._consumer = threading.Thread(
             target=self._consumer_loop, name="thapi-consumer", daemon=True
@@ -664,6 +675,11 @@ class Tracer:
                 self.adaptive.tick()
             if self.cluster is not None:
                 self.cluster.tick()
+            if self.remediation is not None:
+                try:
+                    self.remediation.tick()
+                except Exception:
+                    pass  # remediation must never kill the consumer thread
 
     def _stream_tick(self, final: bool = False) -> None:
         """Push the live tally to the streaming service (§3.7+§6).

@@ -206,8 +206,12 @@ class Trainer:
     def request_drain(self) -> None:
         """Ask the running loop to drain at the next step boundary.
 
-        Thread-safe: this is what a remediation engine's drain hook calls
-        from the tracer's consumer thread while the step loop runs.
+        Thread-safe: this is what a :class:`~repro_torch.core.remediation.
+        RemediationEngine` drain hook calls from the tracer's consumer
+        thread while the step loop runs.  It only sets an event: the drain
+        checkpoint is written by :meth:`run`'s own thread at the step
+        boundary, so the hook neither blocks the consumer's flushes for the
+        length of a save nor touches the device from a second thread.
         """
         self.draining.set()
 

@@ -7,14 +7,14 @@ bytes, and the donated decode cache's bytes); the decode step writes the
 engine's cache in place; the port's trace model extends the JAX builtin
 model eid for eid; shared events encode byte for byte alike.  Also the port's guards: no
 JAX or ``repro`` import anywhere in the port, no CPU fallback in the
-launcher, and an error for the tracing knob whose module is not ported
-(remediation); the live-tracing knobs start a session.
+launcher; the live-tracing knobs and the remediation engine start a session.
 The offline knobs (online tally, aggregate-only, columnar sidecars, the
 tally-only rung) tally a serving session as the JAX package's do.
 """
 
 import os
 import re
+import time
 
 import jax
 import numpy as np
@@ -287,6 +287,49 @@ def test_traced_step_records_compile_once_and_dispatch_per_call(tmp_path):
     assert ("ust_repro", "poll_ready") not in t.apis
 
 
+COLLECTIVES = [("all_reduce", 4096, "data", 2), ("all_gather", 512, "model", 4),
+               ("reduce_scatter", 1024, "data", 8), ("all_to_all", 2048, "expert", 4),
+               ("broadcast", 64, "", 2), ("barrier", 0, "step", 3)]
+
+
+def test_collective_span_records_what_the_jax_span_records(tmp_path):
+    """Each kind of ``collective_span`` in both packages: the same event ids
+    and payloads, and the same device rows under the JAX ``tally_trace``;
+    without a session the span records nothing."""
+    from repro.core.interception import collective_span as jax_collective_span
+    from repro_torch.core import collective_span
+
+    with collective_span("all_reduce", 8, "data", 2):  # no session: a no-op
+        pass
+    dirs = {}
+    for name, tracer, cfg, span in (("jax", JaxTracer, JaxTraceConfig, jax_collective_span),
+                                    ("torch", Tracer, TraceConfig, collective_span)):
+        dirs[name] = str(tmp_path / name)
+        with tracer(cfg(out_dir=dirs[name], mode="default")):
+            for args in COLLECTIVES:
+                with span(*args):
+                    pass
+
+    def rows(d):
+        out = []
+        for e in JaxCTFSource(d):
+            if e.etype.provider == "ust_collective":
+                f = e.asdict()
+                f.pop("ts_begin"), f.pop("ts_end")
+                out.append((e.etype.eid, e.etype.api, f))
+        return out
+
+    assert len(rows(dirs["torch"])) == len(COLLECTIVES)
+    assert rows(dirs["torch"]) == rows(dirs["jax"])
+
+    def calls(t):
+        return {k: st.calls for k, st in t.device_apis.items()}
+
+    want = calls(jax_tally_trace(dirs["jax"]))
+    assert len(want) == len(COLLECTIVES)
+    assert calls(jax_tally_trace(dirs["torch"])) == want == calls(tally_trace(dirs["torch"]))
+
+
 def test_traced_step_is_a_passthrough_without_a_session():
     step = TracedStep(lambda x: x + 1, device="cpu")
     assert torch.equal(step(torch.zeros(2)), torch.ones(2))
@@ -299,20 +342,21 @@ def test_traced_step_is_a_passthrough_without_a_session():
         ("serve_port", 0),
         ("adaptive", []),
         ("cluster_adaptive", []),
-        ("remediation", object()),
+        ("remediation", "engine"),
     ],
 )
 def test_unported_trace_knobs_raise(tmp_path, knob, value):
-    """``remediation`` is not ported and raises; the live-tracing knobs start
-    a session (``cluster_adaptive`` with the in-process master it reads),
-    and its tally, offline, counts the traced step."""
+    """No knob raises any more: the live-tracing knobs start a session
+    (``cluster_adaptive`` with the in-process master it reads), a
+    ``remediation`` engine is attached to it and ticked by the consumer
+    thread, and the tally, offline, counts the traced step."""
     if knob == "remediation":
-        with pytest.raises(NotImplementedError, match="item 5, distribution and control plane"):
-            TraceConfig(out_dir=str(tmp_path), **{knob: value})
-        return
+        from repro_torch.core import RemediationEngine
+
+        value = RemediationEngine(cooldown_s=0.01, backoff_cap_s=0.01, escalate_after=1)
     extra = {"serve_port": 0} if knob == "cluster_adaptive" else {}
     cfg = TraceConfig(out_dir=str(tmp_path), **{knob: value}, **extra)
-    assert cfg.online  # every live knob implies the live tally
+    assert cfg.online == (knob != "remediation")  # every live knob implies the live tally
     step = TracedStep(lambda x: x * 2, name="double", device="cpu")
     with Tracer(cfg) as tr:
         step(torch.ones(4))
@@ -320,9 +364,17 @@ def test_unported_trace_knobs_raise(tmp_path, knob, value):
         assert (tr.server is not None) == (knob in ("serve_port", "cluster_adaptive"))
         assert (tr.adaptive is not None) == (knob == "adaptive")
         assert tr.cluster is None or tr.cluster.master is tr.server
+        assert (tr.remediation is value) == (knob == "remediation")
+        if knob == "remediation":  # the consumer thread's ticks walk the ladder
+            value.ingest_flag("rank0", "straggler", "test")
+            deadline = time.monotonic() + 10.0
+            while not value.actions and time.monotonic() < deadline:
+                time.sleep(0.01)
+            assert [a.action for a in value.actions] == ["escalate_fidelity"]
     if knob == "stream_to":  # nothing listens there: every push is dropped
         assert tr.handle.streamed == 0 and tr.handle.stream_dropped >= 1
-    assert tr.final_tally.device_apis[("ust_kernel", "double")].calls == 1
+    if cfg.online:
+        assert tr.final_tally.device_apis[("ust_kernel", "double")].calls == 1
     assert tally_trace(str(tmp_path)).device_apis[("ust_kernel", "double")].calls == 1
 
 
@@ -387,6 +439,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(srcs) > 20
     rel = {os.path.relpath(p, os.path.join(ROOT, "src", "repro_torch")) for p in srcs}
     assert {"core/stream.py", "core/adaptive.py", "examples/serve_traced.py"} <= rel
+    assert {"core/faults.py", "core/remediation.py", "launch/mesh.py", "launch/elastic.py",
+            "examples/distributed_train.py"} <= rel
     assert {"tree.py", "optim/adamw.py", "optim/schedule.py", "optim/compression.py", "data/pipeline.py",
             "checkpoint/checkpointer.py", "train/train_step.py", "train/trainer.py", "launch/train.py",
             "examples/quickstart.py"} <= rel
