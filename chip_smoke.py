@@ -137,8 +137,26 @@ Phases, each fatal on failure:
      its own process for each mode: --chaos with a slowdown (ladder to
      eviction), --chaos --chaos-replace with a kill (a replacement, the
      zombie fenced), --live with a slow rank, and the default mode (200
-     steps, the loss falls, validation clean), each with its wall time.
-The reduced-depth fp32 models of phases 2-4, 8 and 9 are held to the CPU by
+     steps, the loss falls, validation clean), each with its wall time;
+ 11. [train-moe-audio], run between 9 and 10: two-layer full-width fp32
+     train steps on the card against the CPU as in [train], for
+     moonshot-v1-16b-a3b (1 x 128 tokens; each layer's top-k expert sets
+     compared first, a flipped near tie printed and the step then not
+     gated) and whisper-medium (2 encoder + 2 decoder layers, 1500 random
+     frames); full-width whisper-medium (24 + 24 layers, bf16 weights,
+     fp32 moments) trained through ``Trainer`` under a default-mode trace,
+     6 steps of 4 x 448 tokens over 1500 frames a row, checkpoints at steps
+     4 and 6, then its step-4 checkpoint restored (bit for bit the weights
+     after step 4) and served (prompts of 32, 256 and 448 tokens, flash 72 x
+     the prefills); full-width moonshot at 4 of its 48 layers (its whole
+     training state does not fit the card) trained 6 steps of 2 x 1024
+     tokens under a trace, no checkpoint, each step's load-balance term
+     finite and in (0, E], printed with the routing's spread, then served
+     from memory (flash 4 x the prefills).  Gates: finite losses whose last two average below the
+     first, no kernel launch in any train step, the framework rows; it
+     prints the warm step, tokens/s, MFU (moonshot's also by the work its
+     all-expert layer executes), peak memory and a profiled step's parts.
+The reduced-depth fp32 models of phases 2-4, 8, 9 and 11 are held to the CPU by
 ``_rel`` (max|card - cpu| / max|cpu|) under ``CPU_REL_LIMIT``.
 In phases 2-4 the ``[graph]`` phase also serves each full-width model with
 the engine's decode step replaying its CUDA graph, against the eager
@@ -155,6 +173,7 @@ printing no result, without a CUDA card or outside a checkout.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -212,7 +231,7 @@ RGLRU_OPS_PER_ELEMENT = 20
 #: printed beside each; every limit times its outputs' max|cpu| is under
 #: the 1e-3 of the ``allclose(rtol=1e-3, atol=1e-3)`` they replace
 CPU_REL_LIMIT = {"model": 2e-5, "model-rg": 4e-5, "model-dn": 4e-5, "model-moe": 3e-5, "model-ed": 2e-5,
-                 "model-vlm": 1e-4, "train": 5e-5}
+                 "model-vlm": 1e-4, "train": 5e-5, "train-moe": 5e-5, "train-ed": 5e-5}
 
 
 def _leaves(tree):
@@ -2398,48 +2417,92 @@ MATMUL_KERNELS = ("gemm", "xmma", "nvjet", "cutlass", "sm90_")
 
 
 def check_train_against_cpu() -> None:
-    """Two full-width h2o-danube-1.8b layers, fp32: one train step's loss,
-    global gradient norm and every gradient, the card (plain PyTorch under
+    """Two full-width h2o-danube-1.8b layers, fp32: one train step, the card
+    against the CPU (``_train_step_against_cpu``)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=2, dtype="float32")
+    B, S = TRAIN_CPU_CASE
+    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, size=(B, S + 1)).astype(np.int32)
+    _train_step_against_cpu(cfg, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}, 7, "train",
+                            f"2-layer full-width fp32 train step, {B} x {S} tokens")
+
+
+@contextlib.contextmanager
+def _expert_inputs():
+    """Records (layer parameters, input) of each MoE expert layer called in
+    the ``with`` block, for its routing to be recomputed."""
+    from repro_torch.models import moe
+
+    seen, moe_ffn = [], moe.moe_ffn
+    moe.moe_ffn = lambda c, pl, h: seen.append((pl, h.detach())) or moe_ffn(c, pl, h)
+    try:
+        yield seen
+    finally:
+        moe.moe_ffn = moe_ffn
+
+
+def _train_step_against_cpu(cfg, batch: dict, seed: int, tag: str, what: str) -> None:
+    """One train step of ``cfg`` (fp32) on numpy ``batch``: its loss, global
+    gradient norm and every gradient, the card (plain PyTorch under
     autograd, as the JAX train step) against the CPU; and the AdamW update
     of both sides from the CPU's gradients (each side's own gradients reach
     the update divided by sqrt(v) + eps, which magnifies the differences of
-    gradients near eps).  Each within ``CPU_REL_LIMIT["train"]`` of
-    max|cpu|."""
-    import numpy as np
+    gradients near eps).  Each within ``CPU_REL_LIMIT[tag]`` of max|cpu|.
+    For the MoE family each layer's top-k expert sets are compared first:
+    a token whose sets differ must be a near tie (else the phase fails);
+    after such a flip the step's numbers are printed but not gated, since
+    two experts' gradients then differ by design."""
     import torch
 
     from repro_torch import tree
-    from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, global_norm
     from repro_torch.train.train_step import loss_and_grads
 
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=2, dtype="float32")
     model = Model(cfg)
-    params = model.init(torch.Generator(device=DEVICE).manual_seed(7))
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(seed))
     sides = {DEVICE: params, "cpu": _to(params, "cpu")}
-    B, S = TRAIN_CPU_CASE
-    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, size=(B, S + 1)).astype(np.int32)
-    out, grads, cpu_s = {}, {}, 0.0
+    out, grads, seen, cpu_s = {}, {}, {}, 0.0
     for dev, p in sides.items():
-        batch = {"tokens": torch.as_tensor(toks[:, :-1], device=dev), "labels": torch.as_tensor(toks[:, 1:], device=dev)}
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         t0 = time.perf_counter()
-        loss, grads[dev], _ = loss_and_grads(model, p, batch)
-        out[dev] = {"loss": loss, "grad_norm": global_norm(grads[dev])}
+        with _expert_inputs() as seen[dev]:
+            loss, grads[dev], metrics = loss_and_grads(model, p, b)
+        out[dev] = {"loss": loss, "aux": metrics["aux"], "grad_norm": global_norm(grads[dev])}
         out[dev].update({f"grad {k}": g for k, g in tree.items(grads[dev])})
         cpu_s = time.perf_counter() - t0
+    flipped, near = [], 0
+    for l, ((pl, h), (pl_cpu, h_cpu)) in enumerate(zip(seen[DEVICE], seen["cpu"], strict=True)):
+        ids, _ = _routing(cfg, pl, h)
+        ids_cpu, probs_cpu = _routing(cfg, pl_cpu, h_cpu)
+        flipped += [(l, t) for t in _near_ties(cfg, ids, ids_cpu, probs_cpu, f"{tag} layer {l}")]
+        top = probs_cpu.topk(cfg.moe.top_k + 1, dim=-1).values
+        near += int((top[:, -2] - top[:, -1] < NEAR_TIE).sum())
     for dev, p in sides.items():
         g = tree.map(lambda t: t.to(dev), grads["cpu"])
         p = tree.map(torch.clone, p)
         new, _, _ = adamw_update(g, adamw_init(p, AdamWConfig()), p, TRAIN_LR, AdamWConfig())
         out[dev].update({f"updated {k}": w for k, w in tree.items(new)})
-    rels = {name: _within("train", name, out[DEVICE][name], b) for name, b in out["cpu"].items()}
+        del g, p, new
+    if flipped:
+        rels = {name: _rel(out[DEVICE][name].cpu(), b) for name, b in out["cpu"].items()}
+    else:
+        rels = {name: _within(tag, name, out[DEVICE][name], b) for name, b in out["cpu"].items()}
     worst = {grp: max((r, n) for n, r in rels.items() if n.split(" ")[0] == grp) for grp in ("grad", "updated")}
-    print(f"[train] 2-layer full-width fp32 train step, {B} x {S} tokens, card vs cpu max|d|/max|cpu| (limit "
-          f"{CPU_REL_LIMIT['train']:g}): loss {rels['loss']:.3g} ({float(out['cpu']['loss']):.6f}); grad_norm "
-          f"{rels['grad_norm']:.3g}; gradients up to {worst['grad'][0]:.3g} ({worst['grad'][1]}); AdamW-updated "
-          f"weights from the CPU's gradients up to {worst['updated'][0]:.3g} ({worst['updated'][1]}); the CPU's "
-          f"loss and gradients took {cpu_s:.1f} s ok")
+    routing = ""
+    if seen[DEVICE]:
+        routing = (f"; top-k expert sets of {len(seen[DEVICE])} layers: {near} near tie(s) (CPU gap under "
+                   f"{NEAR_TIE}), {len(flipped)} flipped {flipped}" +
+                   (" (so the numbers above are printed, not gated)" if flipped else ", all sets equal"))
+    print(f"[{tag}] {what}, card vs cpu max|d|/max|cpu| (limit {CPU_REL_LIMIT[tag]:g}): loss "
+          f"{rels['loss']:.3g} ({float(out['cpu']['loss']):.6f}); aux {rels['aux']:.3g} "
+          f"({float(out['cpu']['aux']):.6f}); grad_norm {rels['grad_norm']:.3g}; gradients up to "
+          f"{worst['grad'][0]:.3g} ({worst['grad'][1]}); AdamW-updated weights from the CPU's gradients up to "
+          f"{worst['updated'][0]:.3g} ({worst['updated'][1]}){routing}; the CPU's loss and gradients took "
+          f"{cpu_s:.1f} s{'' if flipped else ' ok'}")
 
 
 def _train_rows(tally) -> dict:
@@ -2447,17 +2510,13 @@ def _train_rows(tally) -> dict:
             for api in ("train_step", "data_next", "optimizer_update", "checkpoint_save", "checkpoint_restore")}
 
 
-#: the profiler range the profiled step puts around each ``attend_cfg`` call
-ATTN_RANGE = "train_attention"
-
-
-def _attention_kernels(events) -> list:
-    """The device kernels (``profiler_util.Kernel``) of the profiled step's
-    attention: those launched under an ``ATTN_RANGE`` range of the forward
-    pass, and under the backward node of an operation launched there (the
-    node carries its forward operation's thread and sequence number).  Each
-    kernel belongs to one innermost operation, so none counts twice; the
-    range's own device-side annotation is not a kernel."""
+def _range_kernels(events, name: str) -> list:
+    """The device kernels (``profiler_util.Kernel``) of the profiled step
+    under the profiler range ``name``: those launched under it in the
+    forward pass, and under the backward node of an operation launched
+    there (the node carries its forward operation's thread and sequence
+    number).  Each kernel belongs to one innermost operation, so none counts
+    twice; the range's own device-side annotation is not a kernel."""
 
     def ancestors(e):
         while e is not None:
@@ -2465,49 +2524,64 @@ def _attention_kernels(events) -> list:
             e = e.cpu_parent
 
     fwd = {(e.thread, e.sequence_nr) for e in events
-           if e.sequence_nr >= 0 and any(a.name == ATTN_RANGE for a in ancestors(e))}
+           if e.sequence_nr >= 0 and any(a.name == name for a in ancestors(e))}
 
-    def attention(e):
-        return any(a.name == ATTN_RANGE or (a.scope == 1 and (a.fwd_thread, a.sequence_nr) in fwd)
+    def inside(e):
+        return any(a.name == name or (a.scope == 1 and (a.fwd_thread, a.sequence_nr) in fwd)
                    for a in ancestors(e))
 
-    return [k for e in events if e.kernels and attention(e) for k in e.kernels if k.name != ATTN_RANGE]
+    return [k for e in events if e.kernels and inside(e) for k in e.kernels if k.name != name]
 
 
-def _profile_shares(model, trainer) -> None:
+def _attention_range():
+    """The danube and moonshot steps' attention: ``attend_cfg`` as the
+    training block calls it."""
+    from repro_torch.models import transformer
+
+    return {"attention (attend_cfg forward and backward)": (transformer, "attend_cfg")}
+
+
+def _profile_shares(model, trainer, tag: str = "train", ranges=None) -> None:
     """One more step, profiled in two sessions: the loss and its gradients,
     then the AdamW update.  Prints each session's device busy time and idle
-    share, and the step's device time split into disjoint parts: the
-    attention (``layers.attend_cfg`` forward and its backward, inside a
-    profiler range), the matrix products outside it, the AdamW update and
-    the rest; and the longest kernels.  A measurement: it prints, and fails
-    only on a session without device time."""
+    share, and the step's device time split into disjoint parts: one for
+    each of ``ranges`` ({label: (module, function name)}, default the
+    attention: the function, as the model calls it, runs inside a profiler
+    range of its own, and its part is the kernels of its forward and of
+    its operations' backward nodes), the matrix products outside them, the
+    AdamW update and the rest; and the longest kernels.  A measurement: it
+    prints, and fails only on a session without device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from repro_torch.models import transformer
     from repro_torch.optim import adamw_update, warmup_cosine
     from repro_torch.train.train_step import loss_and_grads
 
+    ranges = ranges or _attention_range()
     tcfg = trainer.tcfg
     state = trainer.state
     batch = trainer._device_batch(trainer.pipe.batch_at(trainer.pipe.step))
     lr = warmup_cosine(state["opt"]["count"], peak_lr=tcfg.peak_lr, warmup=tcfg.warmup, total=tcfg.total_steps)
     sessions, grads = {}, None
-    attend_cfg = transformer.attend_cfg
+    names = {label: f"train_range_{i}" for i, label in enumerate(ranges)}
 
-    def ranged_attend_cfg(*args, **kw):
-        with record_function(ATTN_RANGE):
-            return attend_cfg(*args, **kw)
+    def ranged(name, fn):
+        def call(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return call
 
     def run_grads():
         nonlocal grads
-        transformer.attend_cfg = ranged_attend_cfg
+        originals = {label: getattr(mod, attr) for label, (mod, attr) in ranges.items()}
+        for label, (mod, attr) in ranges.items():
+            setattr(mod, attr, ranged(names[label], originals[label]))
         try:
             grads = loss_and_grads(model, state["params"], batch)[1]
         finally:
-            transformer.attend_cfg = attend_cfg
+            for label, (mod, attr) in ranges.items():
+                setattr(mod, attr, originals[label])
 
     def run_update():
         adamw_update(grads, state["opt"], state["params"], lr, tcfg.adamw)
@@ -2520,42 +2594,45 @@ def _profile_shares(model, trainer) -> None:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         events = prof.events()
-        # the profiler mirrors each ATTN_RANGE range on the device as an
-        # annotation spanning its kernels: not device work of its own
-        dev = [e for e in events if e.device_type == DeviceType.CUDA and e.name != ATTN_RANGE]
+        # the profiler mirrors each range on the device as an annotation
+        # spanning its kernels: not device work of its own
+        dev = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in names.values()]
         if not dev:
-            print(f"[train] profile {label}: wall {wall:.2f} ms; the profiler recorded no device time (not measured)")
+            print(f"[{tag}] profile {label}: wall {wall:.2f} ms; the profiler recorded no device time (not measured)")
             return
         sessions[label] = (wall, dev, events)
     busy = {k: sum(e.time_range.elapsed_us() for e in dev) / 1e3 for k, (_, dev, _) in sessions.items()}
     total = sum(busy.values())
     for label, (wall, dev, _) in sessions.items():
-        print(f"[train] profile {label}: wall {wall:.2f} ms, device busy {busy[label]:.2f} ms ({len(dev)} device ops), "
-              f"idle share {1 - busy[label] / wall:.3f}; {busy[label] / total:.3f} of the step's device time")
+        print(f"[{tag}] profile {label}: wall {wall:.2f} ms, device busy {busy[label]:.2f} ms ({len(dev)} device "
+              f"ops), idle share {1 - busy[label] / wall:.3f}; {busy[label] / total:.3f} of the step's device time")
 
     def is_mm(name):
         return any(k in name.lower() for k in MATMUL_KERNELS)
 
     grad_events = sessions["loss and gradients"][2]
-    attn = _attention_kernels(grad_events)
-    attn_ms = sum(k.duration for k in attn) / 1e3
-    attn_mm = sum(k.duration for k in attn if is_mm(k.name)) / 1e3
-    attn_sm = sum(k.duration for k in attn if "softmax" in k.name.lower()) / 1e3
-    mm = sum(e.time_range.elapsed_us() for e in sessions["loss and gradients"][1] if is_mm(e.name)) / 1e3 - attn_mm
-    adamw = busy["AdamW update"]
-    rest = total - attn_ms - mm - adamw
-    if not attn:
-        print("[train] profiled step: no kernel was found under the attention range (attention share not measured)")
-    print(f"[train] profiled step, disjoint parts of its device busy {total:.2f} ms: attention (attend_cfg forward "
-          f"and backward) {attn_ms:.2f} ms ({attn_ms / total:.3f}; of it matrix products {attn_mm:.2f} ms, softmax "
-          f"{attn_sm:.2f} ms); matrix products outside attention {mm:.2f} ms ({mm / total:.3f}); AdamW update "
-          f"{adamw:.2f} ms ({adamw / total:.3f}); the rest {rest:.2f} ms ({rest / total:.3f})")
+    parts, inside_mm = [], 0.0
+    for label in ranges:
+        ks = _range_kernels(grad_events, names[label])
+        if not ks:
+            print(f"[{tag}] profiled step: no kernel was found under the range of {label} (its share not measured)")
+        ms = sum(k.duration for k in ks) / 1e3
+        k_mm = sum(k.duration for k in ks if is_mm(k.name)) / 1e3
+        k_sm = sum(k.duration for k in ks if "softmax" in k.name.lower()) / 1e3
+        inside_mm += k_mm
+        parts.append((label, ms, f"; of it matrix products {k_mm:.2f} ms, softmax {k_sm:.2f} ms"))
+    mm = sum(e.time_range.elapsed_us() for e in sessions["loss and gradients"][1] if is_mm(e.name)) / 1e3 - inside_mm
+    parts.append(("matrix products outside " + ("it" if len(ranges) == 1 else "them"), mm, ""))
+    parts.append(("AdamW update", busy["AdamW update"], ""))
+    parts.append(("the rest", total - sum(ms for _, ms, _ in parts), ""))
+    print(f"[{tag}] profiled step, disjoint parts of its device busy {total:.2f} ms: " +
+          "; ".join(f"{label} {ms:.2f} ms ({ms / total:.3f}{more})" for label, ms, more in parts))
     by_name: dict = {}
     for _, dev, _ in sessions.values():
         for e in dev:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-        print(f"[train]   {ms:8.3f} ms  {name[:110]}")
+        print(f"[{tag}]   {ms:8.3f} ms  {name[:110]}")
     del grads
 
 
@@ -2580,7 +2657,6 @@ def train_full_width() -> tuple:
     from repro_torch.core import TraceConfig, Tracer
     from repro_torch.core.plugins.tally import render, tally_trace
     from repro_torch.models import Model, ShapeSpec
-    from repro_torch.serve import ServeConfig, ServeEngine
     from repro_torch.train import TrainConfig, Trainer, TrainerConfig
 
     cfg = get_config(TRAIN_ARCH)
@@ -2666,36 +2742,54 @@ def train_full_width() -> tuple:
         _profile_shares(model, trainer)
         del trainer, step
         release("after training")
-        eng = ServeEngine(model, params, ServeConfig(batch_slots=4, cache_len=2048, max_new_tokens=TRAIN_NEW_TOKENS))
-        rng = np.random.default_rng(8)
-        for S in TRAIN_SERVE_LENS:
-            eng.submit(rng.integers(0, cfg.vocab_size, size=(S,)))
-        serve_dir = os.path.join(work, "serve")
-        reset_launches()
-        with Tracer(TraceConfig(out_dir=serve_dir, mode="default")):
-            t0 = time.perf_counter()
-            done = eng.run_until_drained()
-            torch.cuda.synchronize()
-            serve_s = time.perf_counter() - t0
-        launches = read_launches()
-        st = tally_trace(serve_dir)
-        n = len(TRAIN_SERVE_LENS)
-        if len(done) != n or any(len(r.out_tokens) != TRAIN_NEW_TOKENS for r in done):
-            raise AssertionError("[train-serve] not every request got its tokens")
-        if any(not 0 <= t < cfg.vocab_size for r in done for t in r.out_tokens):
-            raise AssertionError("[train-serve] token outside the vocabulary")
-        prefills = st.apis[("ust_repro", "prefill")].calls
-        decodes = st.apis[("ust_repro", "decode_step")].calls
-        if prefills != n:
-            raise AssertionError(f"[train-serve] {prefills} prefill rows, want {n}")
-        flash = _flash_gate("train-serve", launches, cfg.num_layers, n, decodes)
-        print(f"[train-serve] the trained checkpoint served {n} requests ({', '.join(map(str, TRAIN_SERVE_LENS))} "
-              f"tokens), {sum(len(r.out_tokens) for r in done)} tokens in {serve_s:.2f} s; first tokens "
-              f"{[r.out_tokens[:4] for r in done]}")
-        del eng, params, restored
+        flash = serve_trained(model, params, TRAIN_SERVE_LENS, "train-serve", os.path.join(work, "serve"),
+                              cfg.num_layers, "the trained checkpoint")
+        del params, restored
         return flash, {h["step"]: h["loss"] for h in res["history"]}
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def serve_trained(model, params, lens, tag: str, serve_dir: str, per_prefill: int, what: str) -> int:
+    """Trained weights through ``ServeEngine`` under a default-mode trace:
+    a request for each of ``lens`` prompt lengths, TRAIN_NEW_TOKENS new
+    tokens each, 4 slots, cache_len 2048.  Gates: every request its tokens,
+    inside the vocabulary, one prefill row a request, flash ``per_prefill``
+    x the prefills and no other kernel.  Returns the flash launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import TraceConfig, Tracer
+    from repro_torch.core.plugins.tally import tally_trace
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    V = model.cfg.vocab_size
+    eng = ServeEngine(model, params, ServeConfig(batch_slots=4, cache_len=2048, max_new_tokens=TRAIN_NEW_TOKENS))
+    rng = np.random.default_rng(8)
+    for S in lens:
+        eng.submit(rng.integers(0, V, size=(S,)))
+    reset_launches()
+    with Tracer(TraceConfig(out_dir=serve_dir, mode="default")):
+        t0 = time.perf_counter()
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    launches = read_launches()
+    st = tally_trace(serve_dir)
+    n = len(lens)
+    if len(done) != n or any(len(r.out_tokens) != TRAIN_NEW_TOKENS for r in done):
+        raise AssertionError(f"[{tag}] not every request got its tokens")
+    if any(not 0 <= t < V for r in done for t in r.out_tokens):
+        raise AssertionError(f"[{tag}] token outside the vocabulary")
+    prefills = st.apis[("ust_repro", "prefill")].calls
+    decodes = st.apis[("ust_repro", "decode_step")].calls
+    if prefills != n:
+        raise AssertionError(f"[{tag}] {prefills} prefill rows, want {n}")
+    flash = _flash_gate(tag, launches, per_prefill, n, decodes)
+    print(f"[{tag}] {what} served {n} requests ({', '.join(map(str, lens))} tokens), "
+          f"{sum(len(r.out_tokens) for r in done)} tokens in {serve_s:.2f} s; first tokens "
+          f"{[r.out_tokens[:4] for r in done]}")
+    return flash
 
 
 def train_phase() -> tuple:
@@ -2706,6 +2800,283 @@ def train_phase() -> tuple:
     check_train_against_cpu()
     release("after the two-layer train step")
     return train_full_width()
+
+
+# ---------------------------------------------------------------------------
+# [train-moe-audio]: whisper-medium and a reduced-depth full-width moonshot
+# trained as the JAX package trains them, then served
+# ---------------------------------------------------------------------------
+
+#: (batch rows, decoder tokens) of the two-layer card-against-CPU train steps
+FAMILY_TRAIN_CPU_CASE = (1, 128)
+#: whisper's published decoder context, 4 rows of 1500 frames each
+WHISPER_TRAIN_SEQ, WHISPER_TRAIN_BATCH = 448, 4
+WHISPER_TRAIN_STEPS, WHISPER_CKPT_AT = 6, 4
+WHISPER_TRAIN_SERVE_LENS = (32, 256, 448)
+#: moonshot at full width does not fit one card in training (28.06 B
+#: parameters: 56 GB of bf16 weights and 224 GB of fp32 moments); 4 of its
+#: 48 layers do (2.95 B parameters, 29.5 GB of state, 5.9 GB of gradients)
+MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_SEQ, MOE_TRAIN_BATCH, MOE_TRAIN_STEPS = 1024, 2, 6
+MOE_TRAIN_SERVE_LENS = (256, 1024)
+
+
+def check_train_families_against_cpu() -> None:
+    """Two-layer full-width fp32 train steps, card against CPU: moonshot
+    (1.81 B parameters; its expert sets compared first) and whisper (two
+    encoder and two decoder layers over 1500 random frames)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    B, S = FAMILY_TRAIN_CPU_CASE
+    rng = np.random.default_rng(9)
+    cfg = dataclasses.replace(get_config(MOONSHOT), num_layers=2, dtype="float32")
+    toks = rng.integers(0, cfg.vocab_size, size=(B, S + 1)).astype(np.int32)
+    _train_step_against_cpu(cfg, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}, 9, "train-moe",
+                            f"2-layer full-width fp32 train step, {B} x {S} tokens")
+    release("after the two-layer moonshot step")
+    base = get_config(WHISPER)
+    cfg = dataclasses.replace(base, num_layers=2, dtype="float32",
+                              encdec=dataclasses.replace(base.encdec, enc_layers=2))
+    toks = rng.integers(0, cfg.vocab_size, size=(B, S + 1)).astype(np.int32)
+    frames = rng.standard_normal((B, cfg.encdec.enc_positions, cfg.d_model)).astype(np.float32)
+    _train_step_against_cpu(cfg, {"tokens": toks[:, :-1], "labels": toks[:, 1:], "frames": frames}, 10,
+                            "train-ed", f"2 encoder + 2 decoder full-width layers, fp32 train step, "
+                            f"{cfg.encdec.enc_positions} random frames, {B} x {S} tokens")
+
+
+def _traced_training(model, shape, steps: int, tag: str, work: str, ckpt_every: int = 0, snapshot_at: int = 0):
+    """``Trainer`` for ``steps`` steps under a default-mode trace, each step
+    synchronized and timed, its aux read, and the flash launches counted
+    from just before the run to just after it; with ``ckpt_every`` a
+    checkpoint every that many steps (keep 2) under ``work``, and at step
+    ``snapshot_at`` a host copy of the weights.  Gates: finite losses whose
+    last two average below the first, no flash launch, the framework rows.
+    Returns (trainer, per-step aux, warm step s, tally, snapshot)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core import TraceConfig, Tracer
+    from repro_torch.core.plugins.tally import render, tally_trace
+    from repro_torch.train import TrainConfig, Trainer, TrainerConfig
+
+    cfg = model.cfg
+    ckpt_dir, trace_dir = os.path.join(work, "ckpt"), os.path.join(work, "trace")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(model, shape, DEVICE, TrainConfig(peak_lr=TRAIN_LR, warmup=2, total_steps=100),
+                      TrainerConfig(steps=steps, ckpt_every=ckpt_every or steps,
+                                    ckpt_dir=ckpt_dir if ckpt_every else None))
+    if ckpt_every:
+        trainer.ckpt = Checkpointer(ckpt_dir, keep=2)
+    torch.cuda.synchronize()
+    n_params = _numel(trainer.state["params"])
+    state_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(trainer.state))
+    print(f"[{tag}] {cfg.name}: {cfg.num_layers} layers" +
+          (f" + {cfg.encdec.enc_layers} encoder layers" if cfg.encdec else "") +
+          f", {n_params} parameters, {cfg.dtype} weights, {trainer.tcfg.adamw.state_dtype} moments: state "
+          f"{state_bytes / 1e9:.2f} GB, init {time.perf_counter() - t0:.1f} s; {steps} steps of "
+          f"{shape.global_batch} x {shape.seq_len} tokens" +
+          (f" over {cfg.encdec.enc_positions} frames a row" if cfg.encdec else ""))
+    step, times, auxes, snap = trainer.step_fn, [], [], {}
+
+    def timed_step(state, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        auxes.append(float(out[1]["aux"]))
+        if len(times) == snapshot_at:
+            snap.update(tree.items(tree.map(lambda t: t.to("cpu", copy=True), state["params"])))
+        return out
+
+    trainer.step_fn = timed_step
+    reset_launches()
+    t0 = time.perf_counter()
+    with Tracer(TraceConfig(out_dir=trace_dir, mode="default")):
+        res = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    tally = tally_trace(trace_dir)
+    print(render(tally, top=10))
+    losses = [h["loss"] for h in res["history"]]
+    print(f"[{tag}] {res['steps_run']} steps in {wall:.1f} s (checkpoints included); losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; aux {', '.join(f'{a:.4f}' for a in auxes)}; grad norms "
+          f"{', '.join(f'{h['grad_norm']:.3f}' for h in res['history'])}; kernel launches in the steps {launches}")
+    if res["failures"] or trainer.step != steps or not all(np.isfinite(losses + auxes)):
+        raise AssertionError(f"[{tag}] failures {res['failures']}, step {trainer.step}, losses {losses}, aux {auxes}")
+    if not (losses[-1] + losses[-2]) / 2 < losses[0]:
+        raise AssertionError(f"[{tag}] the loss did not fall: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"[{tag}] a kernel ran in a train step: {launches}")
+    saves = (steps // ckpt_every + 1) if ckpt_every else 0
+    want = {"train_step": steps, "data_next": steps, "optimizer_update": steps, "checkpoint_save": saves,
+            "checkpoint_restore": 0}
+    rows = _train_rows(tally)
+    if rows != want:
+        raise AssertionError(f"[{tag}] framework rows {rows}, want {want}")
+    warm = sorted(times[1:])
+    step_s = warm[len(warm) // 2]
+    print(f"[{tag}] framework rows {rows}; warm step {step_s * 1e3:.2f} ms (median of {len(warm)}; range "
+          f"{warm[0] * 1e3:.2f}-{warm[-1] * 1e3:.2f}; the first {times[0] * 1e3:.2f}), {shape.tokens / step_s:.1f} "
+          f"tokens/s; peak allocated {peak / 2**30:.3f} GiB; {card_line()}")
+    return trainer, auxes, step_s, tally, snap
+
+
+def train_whisper() -> int:
+    """Full-width whisper-medium (24 + 24 layers, bf16 weights, fp32
+    moments) trained through ``Trainer`` for WHISPER_TRAIN_STEPS steps of
+    WHISPER_TRAIN_BATCH x WHISPER_TRAIN_SEQ tokens, each row over 1500
+    frames of the pipeline, checkpointing at step WHISPER_CKPT_AT (and at
+    the end, as the trainer does); the step-WHISPER_CKPT_AT checkpoint
+    restored from disk, bit for bit the weights after that step, and
+    served: flash 72 x the prefills.  Returns the flash launches."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, ShapeSpec, encdec
+
+    model = Model(get_config(WHISPER))
+    cfg = model.cfg
+    shape = ShapeSpec("chip", "train", WHISPER_TRAIN_SEQ, WHISPER_TRAIN_BATCH)
+    work = tempfile.mkdtemp(prefix="thapi_train_whisper_")
+    try:
+        trainer, _, step_s, tally, snap = _traced_training(model, shape, WHISPER_TRAIN_STEPS, "train-whisper", work,
+                                                           ckpt_every=WHISPER_CKPT_AT, snapshot_at=WHISPER_CKPT_AT)
+        p = trainer.state["params"]
+        n_enc = _numel(p["enc_blocks"]) + _numel(p["ln_enc"])
+        frames = WHISPER_TRAIN_BATCH * cfg.encdec.enc_positions
+        executed = 6 * (n_enc * frames + (_numel(p) - n_enc - _numel(p["pos_enc"])) * shape.tokens)
+        print(f"[train-whisper] MFU {model.model_flops_per_token() * shape.tokens / step_s / BF16_FLOPS_PER_S:.4f} "
+              f"(6 N tokens / step time / {BF16_FLOPS_PER_S:g}, N = {model.cfg.active_params()}, the decoder's "
+              f"{shape.tokens} tokens only); the executed matrix work 6 (N_enc frames + N_dec tokens) = "
+              f"{executed:.4g} FLOPs ({frames} frames through {n_enc} encoder parameters) at "
+              f"{executed / step_s / BF16_FLOPS_PER_S:.4f} of the peak; attention not counted in either")
+        saves = tally.apis[("ust_repro", "checkpoint_save")]
+        path = os.path.join(work, "ckpt", f"step_{WHISPER_CKPT_AT}")
+        t0 = time.perf_counter()
+        restored, man = Checkpointer(os.path.join(work, "ckpt")).restore(path, {"params": model.shapes()},
+                                                                         device=DEVICE)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        params = restored["params"]
+        same = man.step == WHISPER_CKPT_AT and all(
+            a.dtype == snap[k].dtype and torch.equal(a.cpu(), snap[k]) for k, a in tree.items(params))
+        print(f"[train-whisper] checkpoint save avg {saves.avg_ns / 1e9:.2f} s over {saves.calls} (background); "
+              f"restored {path} (step {man.step}, {sum(m['nbytes'] for m in man.leaves) / 1e9:.2f} GB on disk) "
+              f"for serving in {restore_s:.1f} s: {_numel(params)} parameters, bit for bit the weights after step "
+              f"{WHISPER_CKPT_AT}: {same}")
+        if not same:
+            raise AssertionError("[train-whisper] the restored checkpoint is not the state after its step")
+        _profile_shares(model, trainer, "train-whisper",
+                        {"attention (layers.attend forward and backward)": (encdec, "attend")})
+        del trainer, snap
+        release("after training whisper")
+        per = cfg.encdec.enc_layers + 2 * cfg.num_layers
+        n = serve_trained(model, params, WHISPER_TRAIN_SERVE_LENS, "train-whisper-serve", os.path.join(work, "serve"),
+                          per, f"the step-{WHISPER_CKPT_AT} checkpoint")
+        del params, restored
+        return n
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _routing_spread(model, params, batch) -> str:
+    """Each layer's routing of ``batch`` (no gradient): the experts chosen
+    by any token, the largest share of tokens one expert takes, the top_k
+    experts' mean probability mass, and the layer's E·Σ f·p (the aux term:
+    top_k under uniform routing, E times the chosen experts' mean mass when
+    every token chooses the same top_k)."""
+    import torch
+
+    cfg = model.cfg
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    with _expert_inputs() as seen, torch.no_grad():
+        model.logits(params, batch)
+    rows = []
+    for l, (pl, h) in enumerate(seen):
+        ids, probs = _routing(cfg, pl, h)
+        share = torch.bincount(ids.flatten(), minlength=E).float() / ids.shape[0]
+        mass = probs.topk(k, dim=-1).values.sum(-1).mean()
+        rows.append(f"layer {l}: {int((share > 0).sum())} experts chosen, largest share {share.max():.3f}, top-{k} "
+                    f"mass {mass:.3f}, E·Σ f·p {E * (share * probs.mean(0)).sum():.3f}")
+    return "; ".join(rows)
+
+
+def train_moonshot() -> int:
+    """Full-width moonshot-v1-16b-a3b at MOE_TRAIN_LAYERS layers (bf16
+    weights, fp32 moments) trained through ``Trainer`` for MOE_TRAIN_STEPS
+    steps of MOE_TRAIN_BATCH x MOE_TRAIN_SEQ tokens, no checkpoint; each
+    step's aux finite and in (0, E], the bounds of E·Σ f·p (Σ f = top_k,
+    each f at most 1, Σ p = 1), printed beside each layer's routing of the
+    next batch; then the trained weights served from memory: flash
+    MOE_TRAIN_LAYERS x the prefills.  Returns the flash launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, ShapeSpec, moe, transformer
+
+    cfg = dataclasses.replace(get_config(MOONSHOT), num_layers=MOE_TRAIN_LAYERS)
+    model = Model(cfg)
+    k = cfg.moe.top_k
+    print(f"[train-moe] depth {MOE_TRAIN_LAYERS} of {get_config(MOONSHOT).num_layers} layers at full width: the "
+          f"whole model's training state (28.06 B parameters: 56 GB of bf16 weights, 224 GB of fp32 moments) does "
+          f"not fit one 80 GB card")
+    shape = ShapeSpec("chip", "train", MOE_TRAIN_SEQ, MOE_TRAIN_BATCH)
+    work = tempfile.mkdtemp(prefix="thapi_train_moe_")
+    try:
+        trainer, auxes, step_s, _, _ = _traced_training(model, shape, MOE_TRAIN_STEPS, "train-moe", work)
+        E = cfg.moe.num_experts
+        if not all(0 < a <= E for a in auxes):
+            raise AssertionError(f"[train-moe] aux {auxes}: want each in (0, {E}]")
+        spread = _routing_spread(model, trainer.state["params"],
+                                 trainer._device_batch(trainer.pipe.batch_at(trainer.pipe.step)))
+        print(f"[train-moe] aux {min(auxes):.4f}-{max(auxes):.4f} (top_k = {k} under uniform routing, at most "
+              f"E = {E}); the next batch's routing after training: {spread}")
+        n_all = _numel(trainer.state["params"])
+        n_act = cfg.active_params()
+        print(f"[train-moe] MFU by 6 "
+              f"N_active ({n_act} active parameters) {6 * n_act * shape.tokens / step_s / BF16_FLOPS_PER_S:.4f}; "
+              f"the work executed, 6 N_all ({n_all} parameters: _moe_dense runs all {cfg.moe.num_experts} experts "
+              f"on every token, {cfg.moe.num_experts / k:.1f}x the routed expert products), at "
+              f"{6 * n_all * shape.tokens / step_s / BF16_FLOPS_PER_S:.4f} of {BF16_FLOPS_PER_S:g}; attention not "
+              "counted in either")
+        n = serve_trained(model, trainer.state["params"], MOE_TRAIN_SERVE_LENS, "train-moe-serve",
+                          os.path.join(work, "serve"), cfg.num_layers, "the trained weights, from memory,")
+        _profile_shares(model, trainer, "train-moe", {
+            "attention (attend_cfg forward and backward)": (transformer, "attend_cfg"),
+            "the expert layer (_moe_dense: router, all experts' products, combine)": (moe, "_moe_dense")})
+        del trainer
+        return n
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def train_families_phase() -> int:
+    """[train-moe-audio]: the two-layer card-against-CPU steps, then whisper
+    and moonshot trained and served in turn, each released before the next
+    loads; returns the flash launches of the serving runs."""
+    t0 = time.perf_counter()
+    release("before [train-moe-audio]")
+    check_train_families_against_cpu()
+    t1 = time.perf_counter()
+    release("before [train-whisper]")
+    n = train_whisper()
+    t2 = time.perf_counter()
+    release("before [train-moe]")
+    n += train_moonshot()
+    release("after [train-moe-audio]")
+    t3 = time.perf_counter()
+    print(f"[train-moe-audio] the phase {t3 - t0:.1f} s: two-layer checks {t1 - t0:.1f} s, whisper {t2 - t1:.1f} s, "
+          f"moonshot {t3 - t2:.1f} s")
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -3106,6 +3477,7 @@ def main(argv=()) -> int:
     launches["flash_attention"] += serve_new_families()
     flash_train, train_losses = train_phase()
     launches["flash_attention"] += flash_train
+    launches["flash_attention"] += train_families_phase()
     remediation_phase(train_losses)
     for k in kernels:
         k["launches"] = launches[k["name"]]

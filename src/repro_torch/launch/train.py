@@ -8,9 +8,10 @@
 Runs on CUDA unless ``--device cpu`` is given; without a card it raises
 rather than fall back.  The default is the ``.smoke()`` reduction (the JAX
 launcher's ``--smoke``, accepted and implied); ``--full`` trains the
-published width on one card, weights drawn from ``--seed``.  The dense and
-VLM families train; the others exit non-zero, naming the ROADMAP entry
-that takes them.
+published width on one card, weights drawn from ``--seed``.  The dense,
+VLM, MoE and audio families train (whisper over the pipeline's random
+frames); the SSM and hybrid families exit non-zero, naming the ROADMAP
+entry for them.
 """
 
 from __future__ import annotations

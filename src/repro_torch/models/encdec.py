@@ -1,4 +1,5 @@
-"""Whisper-style encoder–decoder (audio backbone), serving path.
+"""Whisper-style encoder–decoder (audio backbone): training forward and
+serving path.
 
 As in the JAX package the conv frontend is a stub: ``batch["frames"]`` are
 precomputed frame embeddings ``[B, enc_positions, d]``.  Pre-LN LayerNorm
@@ -6,13 +7,17 @@ blocks, non-gated GELU MLPs with biases, learned positional embeddings, a
 full-attention encoder and a causal decoder with cross attention in every
 layer.
 
-Every prefill attention goes through ``kernels.ops.flash_attention``: the
-encoder's self-attention (non-causal), the decoder's self-attention (causal)
-and its cross attention over the encoder states (non-causal).  Decode
-attends with ``layers.attend``, as the JAX package does.  Prefill encodes
-the frames once and caches each layer's cross K/V (``xk``/``xv``) beside the
-self-attention K/V; the decode step writes ``k``/``v``/``len`` in place and
-leaves ``xk``/``xv`` as they are.
+``encode`` and ``_dec_block`` take the attention they run over a whole
+sequence.  Training (``forward_train``) passes ``layers.attend``, plain
+PyTorch that autograd differentiates, as the JAX package trains through
+its ``attend``; each block is wrapped by the config's ``remat``.  Serving
+keeps ``kernels.ops.flash_attention`` for every prefill attention: the
+encoder's self-attention (non-causal), the decoder's self-attention
+(causal) and its cross attention over the encoder states (non-causal).
+Decode attends with ``layers.attend``, as the JAX package does.  Prefill
+encodes the frames once and caches each layer's cross K/V (``xk``/``xv``)
+beside the self-attention K/V; the decode step writes ``k``/``v``/``len``
+in place and leaves ``xk``/``xv`` as they are.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from .layers import (
     embed,
     embed_specs,
     layer_slice,
+    layer_slices,
     mlp_specs,
     norm_spec,
     prefill_rows,
@@ -39,6 +45,7 @@ from .layers import (
     unembed,
 )
 from .param import Spec
+from .transformer import _remat
 
 
 def specs(cfg: ModelConfig) -> dict:
@@ -66,14 +73,20 @@ def specs(cfg: ModelConfig) -> dict:
     }
 
 
-def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor) -> torch.Tensor:
-    """frames ``[B, T, d]`` → encoder states ``[B, T, d]``."""
+def _enc_block(cfg: ModelConfig, pl: dict, x: torch.Tensor, attention) -> torch.Tensor:
+    q, k, v = qkv(cfg, pl["attn"], apply_norm(cfg, pl["ln1"], x))
+    x = x + attn_out(pl["attn"], attention(q, k, v, causal=False))
+    return x + apply_mlp(cfg, pl["mlp"], apply_norm(cfg, pl["ln2"], x))
+
+
+def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor, attention=kops.flash_attention,
+           wrap=lambda fn: fn) -> torch.Tensor:
+    """frames ``[B, T, d]`` → encoder states ``[B, T, d]``; ``wrap`` wraps
+    each block (training passes the config's remat)."""
     x = frames + params["pos_enc"][None, : frames.shape[1]].to(frames.dtype)
-    for l in range(cfg.encdec.enc_layers):
-        pl = layer_slice(params["enc_blocks"], l)
-        q, k, v = qkv(cfg, pl["attn"], apply_norm(cfg, pl["ln1"], x))
-        x = x + attn_out(pl["attn"], kops.flash_attention(q, k, v, causal=False))
-        x = x + apply_mlp(cfg, pl["mlp"], apply_norm(cfg, pl["ln2"], x))
+    body = wrap(lambda pl, h: _enc_block(cfg, pl, h, attention))
+    for pl in layer_slices(params["enc_blocks"], cfg.encdec.enc_layers):
+        x = body(pl, x)
     return apply_norm(cfg, params["ln_enc"], x)
 
 
@@ -83,13 +96,14 @@ def _cross_kv(pl: dict, enc_out: torch.Tensor):
     return k, v
 
 
-def _dec_block(cfg: ModelConfig, pl: dict, x, xk, xv, self_kv=None, lengths=None, kv_valid=None):
-    """One decoder block over the cross K/V ``xk``/``xv``: the prompt (flash
-    attention) when ``self_kv`` is None, else one new token whose K/V go into
-    the cache rows ``self_kv`` in place.  Returns (x, k, v)."""
+def _dec_block(cfg: ModelConfig, pl: dict, x, xk, xv, self_kv=None, lengths=None, kv_valid=None,
+               attention=kops.flash_attention):
+    """One decoder block over the cross K/V ``xk``/``xv``: the whole sequence
+    through ``attention`` when ``self_kv`` is None, else one new token whose
+    K/V go into the cache rows ``self_kv`` in place.  Returns (x, k, v)."""
     q, k, v = qkv(cfg, pl["attn"], apply_norm(cfg, pl["ln1"], x))
     if self_kv is None:
-        ctx = kops.flash_attention(q, k, v, causal=True)
+        ctx = attention(q, k, v, causal=True)
     else:
         ck, cv = self_kv
         cache_update(ck, cv, k, v, lengths)
@@ -97,11 +111,38 @@ def _dec_block(cfg: ModelConfig, pl: dict, x, xk, xv, self_kv=None, lengths=None
     x = x + attn_out(pl["attn"], ctx)
     qx = torch.einsum("bsd,dhk->bshk", apply_norm(cfg, pl["lnx"], x), pl["xattn"]["wq"])
     if self_kv is None:
-        ctx = kops.flash_attention(qx, xk, xv, causal=False)
+        ctx = attention(qx, xk, xv, causal=False)
     else:
         ctx = attend(qx, xk, xv, causal=False)
     x = x + attn_out(pl["xattn"], ctx)
     return x + apply_mlp(cfg, pl["mlp"], apply_norm(cfg, pl["ln2"], x)), k, v
+
+
+def forward_train(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    """Logits ``[B, S, padded_vocab]`` of the decoder over ``batch["tokens"]``
+    after encoding ``batch["frames"]``, every attention by ``layers.attend``.
+    The frames enter in the weights' dtype, as ``batch_specs`` declares them
+    (the pipeline draws them in fp32; ROADMAP fault 28)."""
+    frames = batch["frames"].to(params["pos_enc"].dtype)
+    enc_out = encode(cfg, params, frames, attend, lambda fn: _remat(cfg, fn))
+    tokens = batch["tokens"]
+    x = embed(params["embed"], tokens)
+    x = x + params["pos_dec"][None, : tokens.shape[1]].to(x.dtype)
+
+    def dec_block(pl, h, enc):
+        xk, xv = _cross_kv(pl, enc)
+        return _dec_block(cfg, pl, h, xk, xv, attention=attend)[0]
+
+    body = _remat(cfg, dec_block)
+    for pl in layer_slices(params["dec_blocks"], cfg.num_layers):
+        x = body(pl, x, enc_out)
+    x = apply_norm(cfg, params["ln_f"], x)
+    return unembed(cfg, params["embed"], x)
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
 
 
 def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> dict:

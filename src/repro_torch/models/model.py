@@ -10,9 +10,12 @@
     m.batch_specs(shape)       input Spec tree for a ShapeSpec
     m.cache_specs(shape)       serving-state Spec tree for decode shapes
 
-Training covers the dense and VLM families, whose JAX ``forward_train``
-runs no Pallas kernel; ``logits`` refuses the others, each naming the
-ROADMAP entry that takes it.
+Training covers the dense, VLM, MoE and audio families, whose JAX
+``forward_train`` runs no Pallas kernel (the MoE family on one device, the
+JAX package's mesh-free ``_moe_dense``).  ``logits`` refuses the SSM and
+hybrid families, whose kernels have no backward, naming the ROADMAP entry
+for each.  The MoE family's loss adds ``aux_loss_weight`` times its
+load-balance term, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -28,8 +31,6 @@ from .param import shapes as spec_shapes
 
 #: the families whose training is not ported, and the ROADMAP entry for each
 _NOT_TRAINED = {
-    "moe": "ROADMAP item 4b (the one-device _moe_dense forward_train)",
-    "audio": "ROADMAP item 4b (the encoder-decoder forward_train)",
     "ssm": "ROADMAP section 4, open question: the SSD kernel has no backward, in JAX as here",
     "hybrid": "ROADMAP section 4, open question: the RG-LRU kernel has no backward, in JAX as here",
 }
@@ -71,19 +72,26 @@ class Model:
             )
 
     def logits(self, params: dict, batch: dict):
-        """(logits, auxiliary loss) over the whole sequence."""
+        """(logits, auxiliary loss) over the whole sequence: the MoE family's
+        load-balance term, an fp32 zero for the others."""
         self.check_trainable()
+        if self.cfg.family == "moe":
+            return self.mod.forward_train(self.cfg, params, batch)
         out = self.mod.forward_train(self.cfg, params, batch)
         return out, torch.zeros((), dtype=torch.float32, device=out.device)
 
     def loss(self, params: dict, batch: dict):
-        """(mean cross-entropy, {"ce", "aux"}); a VLM's loss covers only the
-        text positions."""
+        """(loss, {"ce", "aux"}): the mean cross-entropy, plus
+        ``aux_loss_weight`` times the load-balance term for the MoE family; a
+        VLM's loss covers only the text positions."""
         logits, aux = self.logits(params, batch)
         if self.cfg.vision_tokens:
             logits = logits[:, self.cfg.vision_tokens :]
         ce = xent_loss(self.cfg, logits, batch["labels"])
-        return ce, {"ce": ce, "aux": aux}
+        total = ce
+        if self.cfg.family == "moe":
+            total = ce + self.cfg.moe.aux_loss_weight * aux
+        return total, {"ce": ce, "aux": aux}
 
     # -- serving -----------------------------------------------------------------
     def prefill(self, params: dict, batch: dict, cache_len: int):

@@ -1,21 +1,26 @@
-"""Mixture-of-Experts LM (moonshot 64 experts / top-6, kimi-k2 384 / top-8),
-serving path.
+"""Mixture-of-Experts LM (moonshot 64 experts / top-6, kimi-k2 384 / top-8):
+training forward and serving path.
 
-The block is the dense family's (``transformer.prefill_layer`` /
-``decode_layer``, every prefill attention through the flash kernel) with
-the MLP replaced by the expert layer.  On one device the JAX package's
-``moe_ffn`` takes ``_moe_dense``: every expert on every token and a masked
-combine of the router's top-k.  The port computes that function.  The
-expert products are batched matmuls over the expert axis whose token
+The block is the dense family's (``transformer.block`` in training,
+attention by ``layers.attend_cfg`` and no kernel; ``prefill_layer`` /
+``decode_layer`` in serving, every prefill attention through the flash
+kernel) with the MLP replaced by the expert layer.  On one device the JAX
+package's ``moe_ffn`` takes ``_moe_dense``: every expert on every token and
+a masked combine of the router's top-k.  The port computes that function.
+The expert products are batched matmuls over the expert axis whose token
 operand is the tokens broadcast as a view, so nothing copies the
-``[E, d, f]`` weights (an einsum over ``"td,edf->tef"`` copies).  The
-combine is a scatter of the top-k weights into a ``[T, E]`` matrix, with
-static shapes and no host sync, so the decode step captures as a CUDA graph.
+``[E, d, f]`` weights (an einsum over ``"td,edf->tef"`` copies); under
+autograd the view's gradient is summed from ``[E, T, d]``.  The combine is a
+scatter of the top-k weights into a ``[T, E]`` matrix, with static shapes
+and no host sync, so the decode step captures as a CUDA graph.  The
+router's expert shares (a scatter of ones) carry no gradient, as the JAX
+one-hot carries none; the mean probabilities and the top-k weights do.
 
+``forward_train`` returns the logits and the load-balance loss averaged
+over the layers, summed in fp32 from an fp32 zero as the JAX scan's carry.
 The expert-parallel path over a mesh (``shard_map`` / ``all_to_all``) is
-not ported (ROADMAP.md §1 item 5), nor is training (``forward_train``,
-``block``, item 4).  MoE configs have no sliding window, so the dense
-block's window is None.
+not ported (ROADMAP.md §1 item 5).  MoE configs have no sliding window, so
+the dense block's window is None.
 """
 
 from __future__ import annotations
@@ -25,7 +30,16 @@ import torch.nn.functional as F
 
 from . import transformer
 from .config import ModelConfig
-from .layers import attn_specs, embed_specs, kv_cache_specs, norm_spec
+from .layers import (
+    apply_norm,
+    attn_specs,
+    embed,
+    embed_specs,
+    kv_cache_specs,
+    layer_slices,
+    norm_spec,
+    unembed,
+)
 from .param import Spec
 
 
@@ -81,6 +95,29 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor):
 
 def _moe_mlp(cfg: ModelConfig, pl: dict, h: torch.Tensor) -> torch.Tensor:
     return moe_ffn(cfg, pl, h)[0]
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+
+def block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor):
+    """The dense training block with the expert layer: (x, aux)."""
+    return transformer.block(cfg, p, x, positions, ffn=moe_ffn)
+
+
+def forward_train(cfg: ModelConfig, params: dict, batch: dict):
+    """(logits ``[B, S, padded_vocab]``, the layers' mean load-balance loss)."""
+    x = embed(params["embed"], batch["tokens"])
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    body = transformer._remat(cfg, lambda pl, h: block(cfg, pl, h, positions))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for pl in layer_slices(params["blocks"], cfg.num_layers):
+        x, a = body(pl, x)
+        aux = aux + a
+    x = apply_norm(cfg, params["ln_f"], x)
+    return unembed(cfg, params["embed"], x), aux / cfg.num_layers
 
 
 def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> dict:

@@ -5,7 +5,8 @@ prepended to the prompt): training forward and serving path.
 Training (``block``, ``hidden_states``, ``forward_train``) is the JAX
 package's: attention by ``layers.attend_cfg``, plain PyTorch that autograd
 differentiates, and no kernel; the config's ``remat`` chooses what the
-backward recomputes.
+backward recomputes.  ``block`` takes its feed-forward, so that the MoE
+family's training block is this one with the expert layer.
 
 Block: norm → GQA attention with RoPE (optionally a sliding window) →
 residual → norm → SwiGLU MLP → residual.  The JAX package scans over the
@@ -88,19 +89,26 @@ def _remat(cfg: ModelConfig, fn):
     return fn
 
 
-def block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+def _dense_ffn(cfg: ModelConfig, p: dict, h: torch.Tensor):
+    return apply_mlp(cfg, p["mlp"], h), None
+
+
+def block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor, ffn=_dense_ffn):
+    """One training block: returns (x, aux).  ``ffn(cfg, p, h) -> (y, aux)``
+    is its feed-forward: the SwiGLU MLP (aux None), or the MoE family's
+    expert layer with its load-balance loss."""
     h = apply_norm(cfg, p["ln1"], x)
     q, k, v = qkv(cfg, p["attn"], h, positions)
     ctx = attend_cfg(cfg, q, k, v, causal=True, window=cfg.sliding_window)
     x = x + attn_out(p["attn"], ctx)
-    h = apply_norm(cfg, p["ln2"], x)
-    return x + apply_mlp(cfg, p["mlp"], h)
+    y, aux = ffn(cfg, p, apply_norm(cfg, p["ln2"], x))
+    return x + y, aux
 
 
 def hidden_states(cfg: ModelConfig, params: dict, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     """The blocks in order (a loop over the layers where JAX scans), then
     the final norm."""
-    body = _remat(cfg, lambda pl, h: block(cfg, pl, h, positions))
+    body = _remat(cfg, lambda pl, h: block(cfg, pl, h, positions)[0])
     for pl in layer_slices(params["blocks"], cfg.num_layers):
         x = body(pl, x)
     return apply_norm(cfg, params["ln_f"], x)

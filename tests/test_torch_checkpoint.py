@@ -1,6 +1,7 @@
 """PyTorch port, the checkpointer: twins of the JAX package's checkpointer
-tests (``test_train_serve.py``), checkpoints carried between the two
-packages, and bf16 leaves.
+tests (``test_train_serve.py``, and the damage and async-commit cases of
+``test_resilience.py``), checkpoints carried between the two packages, and
+bf16 leaves.
 
 The on-disk format is the JAX one: ``step_<n>/`` written through
 ``step_<n>.tmp/``, one ``.npy`` a leaf, ``manifest.json`` with key, file,
@@ -14,6 +15,7 @@ checkpointer restores neither as bfloat16 (ROADMAP fault 24).
 
 import json
 import os
+import time
 
 import jax
 import jax.numpy as jnp
@@ -105,6 +107,97 @@ def test_save_and_restore_spans_are_traced(tmp_path):
     t = tally_trace(str(tmp_path / "tr"))
     assert t.apis[("ust_repro", "checkpoint_save")].calls == 2
     assert t.apis[("ust_repro", "checkpoint_restore")].calls == 1
+
+
+# ---------------------------------------------------------------------------
+# Damage tolerance and async-commit errors (``test_resilience.py``'s twins)
+# ---------------------------------------------------------------------------
+
+
+def _save_steps(root, steps):
+    ck = Checkpointer(str(root), keep=10)
+    for s in steps:
+        ck.save(s, {"w": torch.arange(8.0)}, extra={"steps_done": s})
+    return ck
+
+
+def _first_leaf(step_dir):
+    with open(step_dir / "manifest.json") as f:
+        return step_dir / json.load(f)["leaves"][0]["file"]
+
+
+def test_list_checkpoints_newest_first(tmp_path):
+    _save_steps(tmp_path, [2, 10, 6])
+    names = [os.path.basename(p) for p in list_checkpoints(str(tmp_path))]
+    assert names == ["step_10", "step_6", "step_2"]
+    assert latest_checkpoint(str(tmp_path)).endswith("step_10")
+    assert list_checkpoints(str(tmp_path / "nowhere")) == []
+
+
+def test_latest_checkpoint_skips_corrupt_manifest(tmp_path):
+    _save_steps(tmp_path, [4, 8])
+    with open(tmp_path / "step_8" / "manifest.json", "w") as f:
+        f.write("{this is not json")
+    assert latest_checkpoint(str(tmp_path)).endswith("step_4")
+
+
+def test_latest_checkpoint_skips_truncated_leaf(tmp_path):
+    _save_steps(tmp_path, [4, 8])
+    leaf = _first_leaf(tmp_path / "step_8")
+    leaf.write_bytes(leaf.read_bytes()[:10])
+    assert latest_checkpoint(str(tmp_path)).endswith("step_4")
+
+
+def test_latest_checkpoint_skips_missing_leaf(tmp_path):
+    _save_steps(tmp_path, [4, 8])
+    os.remove(_first_leaf(tmp_path / "step_8"))
+    assert latest_checkpoint(str(tmp_path)).endswith("step_4")
+    # every checkpoint damaged: None, not an exception
+    os.remove(tmp_path / "step_4" / "manifest.json")
+    assert latest_checkpoint(str(tmp_path)) is None
+
+
+def test_restore_still_validates_crc(tmp_path):
+    """``list_checkpoints`` checks the structure only: a flipped payload byte
+    is caught by ``restore``."""
+    ck = _save_steps(tmp_path, [4])
+    leaf = _first_leaf(tmp_path / "step_4")
+    raw = bytearray(leaf.read_bytes())
+    raw[-1] ^= 0xFF
+    leaf.write_bytes(bytes(raw))
+    path = latest_checkpoint(str(tmp_path))
+    assert path.endswith("step_4")
+    with pytest.raises(ValueError, match="integrity"):
+        ck.restore(path, {"w": torch.zeros(8)})
+
+
+def _broken_writer(ck, monkeypatch):
+    def boom(step, host_leaves, extra):
+        raise OSError("disk full")
+
+    monkeypatch.setattr(ck, "_write", boom)
+
+
+def test_save_async_error_surfaces_from_wait(tmp_path, monkeypatch):
+    ck = Checkpointer(str(tmp_path))
+    _broken_writer(ck, monkeypatch)
+    ck.save_async(1, {"a": torch.zeros(4)})
+    with pytest.raises(RuntimeError, match="async checkpoint failed"):
+        ck.wait()
+    ck.wait()  # the error is consumed, not raised again
+
+
+def test_save_async_error_surfaces_from_next_save_async(tmp_path, monkeypatch):
+    ck = Checkpointer(str(tmp_path))
+    _broken_writer(ck, monkeypatch)
+    ck.save_async(1, {"a": torch.zeros(4)})
+    while ck._pending.is_alive():
+        time.sleep(0.01)
+    monkeypatch.undo()
+    with pytest.raises(RuntimeError, match="async checkpoint failed"):
+        ck.save_async(2, {"a": torch.zeros(4)})
+    # the checkpointer stays usable after surfacing the failure
+    assert ck.save(3, {"a": torch.zeros(4)}).endswith("step_3")
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,9 @@
 per-rank breakdown (retention through delta/resync frames, ``query_ranks``
 over a forwarder tree, by-rank subscribe) and the policies that read it
 (StragglerRankPolicy, RankImbalanceAdvisoryPolicy) — all clock-driven, no
-sleeps in the policy tests.  The trainer's straggler watchdog is not ported
-(ROADMAP item 4): the controller's straggler reports go to a list."""
+sleeps in the policy tests.  The controller's straggler reports go to a
+list here; the trainer's watchdog, which takes them in training, has its
+twins in ``test_torch_trainer.py``."""
 
 import socket
 import time

@@ -1,7 +1,7 @@
 """The port's streaming failure paths, the twin of the stream cases of
 ``tests/test_resilience.py`` against ``repro_torch.core``: daemon survival,
-late masters, and telemetry forwarding (the trainer's checkpoint cases wait
-for the training path, ROADMAP item 4).  Then the telemetry a traced session
+late masters, and telemetry forwarding (the checkpoint cases' twins are in
+``test_torch_checkpoint.py``).  Then the telemetry a traced session
 streams: the port's device-memory figures reach the master, from the inline
 reading and from the sampling daemon."""
 

@@ -7,7 +7,10 @@ function on the same numpy inputs, fp32 on the CPU.  Tolerances:
 ``xent_loss`` and the attentions 1e-5; ``forward_train`` logits and
 ``Model.loss`` 1e-5; every parameter's gradient against ``jax.grad``
 max|Δ|/max|g| ≤ 1e-4; AdamW, the schedule and the int8 round trip 1e-6
-or exact; the pipeline's batches byte for byte.
+or exact; the pipeline's batches byte for byte.  The families trained are
+the dense (h2o-danube-1.8b), VLM (llava-next-34b), MoE (moonshot-v1-16b-a3b,
+its load-balance term in the loss) and audio (whisper-medium, over random
+frames) ones.
 """
 
 import dataclasses
@@ -43,6 +46,8 @@ from repro_torch.optim import compression as tc
 TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = 1e-4  # max|Δ| / max|g| per parameter
 DANUBE, LLAVA = "h2o-danube-1.8b", "llava-next-34b"
+MOONSHOT, WHISPER = "moonshot-v1-16b-a3b", "whisper-medium"
+TRAINED = [DANUBE, LLAVA, MOONSHOT, WHISPER]
 
 
 @functools.lru_cache(maxsize=None)
@@ -55,13 +60,16 @@ def pair(arch, **over):
 
 
 def train_batch(cfg, S, seed, B=2):
-    """tokens, labels (and patch embeddings for a VLM) for S positions."""
+    """tokens, labels (and patch embeddings for a VLM, frames for audio) for
+    S positions."""
     rng = np.random.default_rng(seed)
     n = S - cfg.vision_tokens
     toks = rng.integers(0, cfg.vocab_size, size=(B, n)).astype(np.int32)
     out = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
     if cfg.vision_tokens:
         out["patch_embeds"] = (rng.standard_normal((B, cfg.vision_tokens, cfg.d_model)) * 0.1).astype(np.float32)
+    if cfg.family == "audio":
+        out["frames"] = rng.standard_normal((B, cfg.encdec.enc_positions, cfg.d_model)).astype(np.float32)
     return out
 
 
@@ -154,22 +162,33 @@ def torch_batch(b):
     return {k: torch.from_numpy(v) for k, v in b.items()}
 
 
-@pytest.mark.parametrize("arch", [DANUBE, LLAVA])
+@pytest.mark.parametrize("arch", TRAINED)
 @pytest.mark.parametrize("S", [16, 23])
 def test_forward_train_and_loss_match_jax(arch, S):
-    """llava's S counts its 8 patch embeddings; its loss covers the text."""
+    """llava's S counts its 8 patch embeddings; its loss covers the text.
+    moonshot's loss adds ``aux_loss_weight`` times its load-balance term;
+    the other families' aux is an fp32 zero."""
     jm, jp, tm, tp = pair(arch)
     b = train_batch(tm.cfg, S, seed=S)
-    want_logits, _ = jm.logits(jp, jax_batch(b))
+    want_logits, want_aux = jm.logits(jp, jax_batch(b))
     got_logits, aux = tm.logits(tp, torch_batch(b))
     assert tuple(got_logits.shape) == (2, S, tm.cfg.padded_vocab)
+    assert aux.dtype == torch.float32 and aux.ndim == 0
     np.testing.assert_allclose(got_logits.detach().numpy(), np.asarray(want_logits), **TOL)
+    np.testing.assert_allclose(float(aux), float(want_aux), **TOL)
     (want, wm), (got, gm) = jm.loss(jp, jax_batch(b)), tm.loss(tp, torch_batch(b))
     np.testing.assert_allclose(float(got), float(want), **TOL)
-    assert float(gm["aux"]) == float(wm["aux"]) == 0.0
+    np.testing.assert_allclose(float(gm["ce"]), float(wm["ce"]), **TOL)
+    np.testing.assert_allclose(float(gm["aux"]), float(wm["aux"]), **TOL)
+    if tm.cfg.family == "moe":
+        assert float(gm["aux"]) > 0.5
+        np.testing.assert_allclose(float(got), float(gm["ce"]) + tm.cfg.moe.aux_loss_weight * float(gm["aux"]),
+                                   rtol=1e-6)
+    else:
+        assert float(gm["aux"]) == float(wm["aux"]) == 0.0 and float(got) == float(gm["ce"])
 
 
-@pytest.mark.parametrize("arch", [DANUBE, LLAVA])
+@pytest.mark.parametrize("arch", TRAINED)
 @pytest.mark.parametrize("S", [16, 23])
 def test_every_gradient_matches_jax_grad(arch, S):
     jm, jp, tm, tp = pair(arch)
@@ -199,6 +218,22 @@ def test_remat_full_gives_the_same_gradients(remat):
         assert np.abs(g.numpy() - w).max() / np.abs(w).max() <= GRAD_TOL
 
 
+@pytest.mark.parametrize("arch", [MOONSHOT, WHISPER])
+def test_remat_full_gradients_match_jax_for_moe_and_audio(arch):
+    """``remat="full"`` on both sides: moonshot's block returns its aux
+    beside x through the checkpoint, whisper's encoder and decoder blocks
+    are each recomputed (the decoder's takes the encoder states as an
+    input)."""
+    jm, jp, tm, tp = pair(arch, remat="full")
+    assert tm.cfg.remat == "full"
+    b = train_batch(tm.cfg, 16, seed=11)
+    want = jax.grad(lambda p: jm.loss(p, jax_batch(b))[0])(jp)
+    p = tree.map(lambda t: t.detach().requires_grad_(True), tp)
+    got = torch.autograd.grad(tm.loss(p, torch_batch(b))[0], tree.leaves(p))
+    for (key, w), g in zip(tree.items(jax.tree_util.tree_map(np.asarray, want)), got, strict=True):
+        assert np.abs(g.numpy() - w).max() <= GRAD_TOL * max(np.abs(w).max(), 1e-30), key
+
+
 def test_remat_dots_names_the_roadmap_item():
     tm = Model(dataclasses.replace(get_config(DANUBE).smoke(), remat="dots"))
     _, _, _, tp = pair(DANUBE)
@@ -206,14 +241,14 @@ def test_remat_dots_names_the_roadmap_item():
         tm.loss(tp, torch_batch(train_batch(tm.cfg, 8, seed=0)))
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b", "moonshot-v1-16b-a3b", "whisper-medium"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])
 def test_logits_refuses_the_families_not_ported(arch):
     tm = Model(get_config(arch).smoke())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP section 4"):
         tm.logits({}, {})
 
 
-@pytest.mark.parametrize("arch", [DANUBE, LLAVA, "whisper-medium"])
+@pytest.mark.parametrize("arch", [DANUBE, LLAVA, "whisper-medium", MOONSHOT])
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 def test_batch_specs_match_jax(arch, kind):
     jm, tm = JaxModel(jax_get_config(arch).smoke()), Model(get_config(arch).smoke())
@@ -324,7 +359,7 @@ def test_topk_sparsify_and_densify_match_jax():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", [DANUBE, LLAVA])
+@pytest.mark.parametrize("arch", TRAINED)
 @pytest.mark.parametrize("seed", [0, 1234, 99])
 @pytest.mark.parametrize("dp_rank", [0, 1])
 def test_pipeline_batches_equal_jax_byte_for_byte(arch, seed, dp_rank):

@@ -17,6 +17,7 @@ import dataclasses
 import functools
 import io
 import os
+import re
 import sys
 from contextlib import redirect_stdout
 
@@ -89,7 +90,8 @@ def port_run(arch, microbatches=1, grad_compression=False, steps=5):
 
 @pytest.mark.parametrize(
     "arch,microbatches,grad_compression",
-    [(DANUBE, 1, False), (DANUBE, 2, False), (DANUBE, 1, True), ("llava-next-34b", 1, False)],
+    [(DANUBE, 1, False), (DANUBE, 2, False), (DANUBE, 1, True), ("llava-next-34b", 1, False),
+     ("moonshot-v1-16b-a3b", 1, False), ("whisper-medium", 1, False)],
 )
 def test_five_steps_match_the_jax_step(arch, microbatches, grad_compression):
     """With ``grad_compression`` the weights are not compared: a gradient
@@ -124,6 +126,37 @@ def test_bf16_training_tracks_the_jax_step():
     jpipe, pipe = JaxPipeline(jm, JSHAPE), SyntheticPipeline(tm, SHAPE)
     for i in range(6):
         jstate, jm_ = jstep(jstate, {k: jax.numpy.asarray(v) for k, v in next(jpipe).items()})
+        state, m = step(state, {k: torch.from_numpy(v) for k, v in next(pipe).items()})
+        assert float(m["loss"]) == pytest.approx(float(jm_["loss"]), rel=2e-4), i
+        assert float(m["grad_norm"]) == pytest.approx(float(jm_["grad_norm"]), rel=2e-3), i
+
+
+def test_bf16_whisper_tracks_the_jax_step_on_frames_in_the_model_dtype():
+    """The smoke whisper in bf16, 6 steps from one state.  The pipelines draw
+    fp32 frames; ``batch_specs`` declares them in the model's dtype.  The
+    port casts them to it; the JAX step cannot take them in fp32 (its
+    decoder scan's carry turns fp32 after the first cross attention), so
+    it is fed them cast to bf16, and the two then track as danube's bf16
+    steps do: loss within 2e-4, gradient norm within 2e-3 (readings 7.8e-5
+    and 9.7e-4; ROADMAP fault 28)."""
+    arch = "whisper-medium"
+    jm = JaxModel(dataclasses.replace(jax_get_config(arch).smoke(), dtype="bfloat16"),
+                  make_mesh((1, 1), ("data", "model")))
+    tm = Model(dataclasses.replace(get_config(arch).smoke(), dtype="bfloat16"))
+    jcfg, tcfg = JaxTrainConfig(peak_lr=5e-3, warmup=2, total_steps=100), TrainConfig(peak_lr=5e-3, warmup=2, total_steps=100)
+    jstep, *_ = build_train_artifacts(jm, Partitioner(jm.mesh), JSHAPE, jcfg)
+    jstate = jax_init_state(jm, jcfg, jax.random.PRNGKey(0))
+    state = state_from_jax(jax.tree_util.tree_map(np.array, jstate), "cpu")
+    step = build_train_step(tm, SHAPE, tcfg, "cpu")
+    jpipe, pipe = JaxPipeline(jm, JSHAPE), SyntheticPipeline(tm, SHAPE)
+    first = next(JaxPipeline(jm, JSHAPE))
+    assert first["frames"].dtype == np.float32
+    with pytest.raises(TypeError, match="carry"):
+        jstep(jax.tree_util.tree_map(jax.numpy.copy, jstate), {k: jax.numpy.asarray(v) for k, v in first.items()})
+    for i in range(6):
+        jb = next(jpipe)
+        jb["frames"] = jb["frames"].astype(jax.numpy.bfloat16)
+        jstate, jm_ = jstep(jstate, {k: jax.numpy.asarray(v) for k, v in jb.items()})
         state, m = step(state, {k: torch.from_numpy(v) for k, v in next(pipe).items()})
         assert float(m["loss"]) == pytest.approx(float(jm_["loss"]), rel=2e-4), i
         assert float(m["grad_norm"]) == pytest.approx(float(jm_["grad_norm"]), rel=2e-3), i
@@ -240,10 +273,26 @@ def test_launcher_refuses_to_fall_back_to_the_cpu(monkeypatch):
         train_launcher.main(["--arch", DANUBE])
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "moonshot-v1-16b-a3b"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])
 def test_launcher_exits_non_zero_for_a_family_not_trained(arch, capsys):
     assert train_launcher.main(["--arch", arch, "--device", "cpu"]) == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    assert "ROADMAP section 4" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "whisper-medium"])
+def test_launcher_trains_the_moe_and_audio_families_on_the_cpu(arch, tmp_path):
+    """The smoke model, 8 steps of 4 x 16 tokens (whisper's over the
+    pipeline's random frames) under a trace: the loss falls."""
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = train_launcher.main(["--arch", arch, "--device", "cpu", "--steps", "8", "--seq", "16",
+                                  "--trace", "default", "--trace-dir", str(tmp_path / "tr")])
+    out = buf.getvalue()
+    assert rc == 0, out
+    m = re.search(rf"^{arch}: loss ([0-9.]+) → ([0-9.]+) in 8 steps on cpu", out, re.M)
+    assert m is not None, out
+    assert float(m.group(2)) < float(m.group(1))
+    assert "train_step" in out and "data_next" in out
 
 
 def test_quickstart_trains_and_tallies_on_the_cpu():
