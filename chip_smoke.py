@@ -156,6 +156,20 @@ Phases, each fatal on failure:
      first, no kernel launch in any train step, the framework rows; it
      prints the warm step, tokens/s, MFU (moonshot's also by the work its
      all-expert layer executes), peak memory and a profiled step's parts.
+ 12. [dryrun], after 10: ``python -m repro_torch.launch.dryrun --arch all``
+     in its own process on meta tensors (its table and time; every cell
+     runs but the mamba2-1.3b and recurrentgemma-2b train cells, refused
+     naming ROADMAP section 4); full-width h2o-danube-1.8b's train step at
+     4 x 1024 tokens under remat none, dots and full, each on fresh weights
+     and released before the next: the dry run's peak within 10 % of the
+     card's, its bound (the larger of compute and memory time) at or under
+     the warm step, dots' and full's first loss and gradient norm within
+     1e-2 of none's, the peaks of the loss and gradients ordered none >=
+     dots >= full, roofline_fraction, useful_flops_ratio and MFU printed;
+     then the danube (24 flash launches) and Mamba2-1.3B (48 SSD launches)
+     prefills of 4096 tokens through the kernels, held the same way against
+     the profiled busy time, their launches added to the kernels line.
+     Every phase prints its seconds, and the run ends with all of them.
 The reduced-depth fp32 models of phases 2-4, 8, 9 and 11 are held to the CPU by
 ``_rel`` (max|card - cpu| / max|cpu|) under ``CPU_REL_LIMIT``.
 In phases 2-4 the ``[graph]`` phase also serves each full-width model with
@@ -188,9 +202,8 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-#: published H100 SXM peaks (NVIDIA data sheet), for the bound column
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS_PER_S = 989e12
+#: published H100 SXM fp32 peak outside the tensor cores (NVIDIA data sheet);
+#: the bf16 peak and the HBM rate are the card's row in repro_torch.launch.roofline
 FP32_FLOPS_PER_S = 67e12
 
 DEVICE = "cuda"
@@ -232,6 +245,16 @@ RGLRU_OPS_PER_ELEMENT = 20
 #: the 1e-3 of the ``allclose(rtol=1e-3, atol=1e-3)`` they replace
 CPU_REL_LIMIT = {"model": 2e-5, "model-rg": 4e-5, "model-dn": 4e-5, "model-moe": 3e-5, "model-ed": 2e-5,
                  "model-vlm": 1e-4, "train": 5e-5, "train-moe": 5e-5, "train-ed": 5e-5}
+
+
+def _card():
+    """The card's published figures, its row in ``repro_torch.launch.roofline``
+    by its name (an unknown card raises)."""
+    import torch
+
+    from repro_torch.launch import roofline
+
+    return roofline.card(torch.cuda.get_device_name(0))
 
 
 def _leaves(tree):
@@ -533,8 +556,8 @@ def ssd_bound(S: int, chunk: int, x, Bm, state0) -> tuple:
     L, nc = chunk, S // chunk
     tri = L * (L + 1) // 2
     flops = B * H * nc * (2 * tri * N + 2 * tri * P + 2 * 2 * L * P * N)
-    peak = BF16_FLOPS_PER_S if el == 2 else FP32_FLOPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    peak = _card().peak_flops if el == 2 else FP32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / _card().hbm_bw, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -655,7 +678,7 @@ def rglru_bound(x, h0) -> tuple:
     """Least time for one call: ``rglru_bytes`` over HBM, and
     RGLRU_OPS_PER_ELEMENT fp32 operations per element over the fp32
     CUDA-core peak (none of it is a matrix product).  Returns (ms, bound_by)."""
-    t_bytes = rglru_bytes(x, h0) / HBM_BYTES_PER_S
+    t_bytes = rglru_bytes(x, h0) / _card().hbm_bw
     t_ops = RGLRU_OPS_PER_ELEMENT * x.numel() / FP32_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -693,7 +716,7 @@ def rglru_time_rows(shapes, kernel_of=rglru_kernel_name, plain: bool = True) -> 
         print(
             f"[rglru-time] bf16 B={B} S={S} C=2560: kernel {ms:.4f} ms per call (CUDA events), "
             f"{dev:.4f} ms on the device (profiler, {kernel}), "
-            f"{rglru_bytes(x, h0) / (dev * 1e-3) / 1e12:.3f} TB/s of the card's {HBM_BYTES_PER_S / 1e12:.2f}, "
+            f"{rglru_bytes(x, h0) / (dev * 1e-3) / 1e12:.3f} TB/s of the card's {_card().hbm_bw / 1e12:.2f}, "
             + (f"plain {plain_ms:.4f} ms, " if plain else "")
             + f"bound {bound:.5f} ms ({by})"
         )
@@ -835,8 +858,8 @@ def flash_bound(q, k, causal: bool, window) -> tuple:
     el = q.element_size()
     nbytes = (2 * q.numel() + 2 * k.numel()) * el
     flops = 4 * d * flash_pairs(S, T, causal, window) * H * B
-    peak = BF16_FLOPS_PER_S if el == 2 else FP32_FLOPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    peak = _card().peak_flops if el == 2 else FP32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / _card().hbm_bw, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1384,21 +1407,31 @@ GRAPH_TOL = 1e-2  # relative, bf16: cuBLAS may choose another algorithm under ca
 GRAPH_PROFILE_REPLAYS = 3
 
 
+#: elements of ``_rel``'s float64 blocks (128 MiB each)
+REL_BLOCK = 1 << 24
+
+
 def _rel(a, b) -> float:
-    """max|a - b| / max|b| in float64, one leading slice at a time: a
-    full-width cache leaf in float64 does not fit beside moonshot's weights."""
-    if a.ndim == 0:
-        a, b = a[None], b[None]
-    num = max(float((x.double() - y.double()).abs().max()) for x, y in zip(a, b, strict=True))
-    return num / max(max(float(y.double().abs().max()) for y in b), 1e-30)
+    """max|a - b| / max|b| in float64 on ``a``'s device, ``REL_BLOCK``
+    elements at a time (``b``'s block moved there): a full-width leaf in
+    float64 does not fit beside moonshot's weights, and on the host the
+    float64 passes over a two-layer moonshot's gradients and weights took
+    a minute."""
+    if a.shape != b.shape:
+        raise ValueError(f"_rel of shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    num = den = 0.0
+    for x, y in zip(a.flatten().split(REL_BLOCK), b.flatten().split(REL_BLOCK), strict=True):
+        y = y.to(x.device).double()
+        num = max(num, float((x.double() - y).abs().max()))
+        den = max(den, float(y.abs().max()))
+    return num / max(den, 1e-30)
 
 
 def _within(tag: str, name: str, a, b) -> float:
-    """``_rel(a, b)`` of a card result ``a`` and its CPU twin ``b``; fails
-    on a non-finite ``a`` or past ``CPU_REL_LIMIT[tag]``."""
+    """``_rel(a, b)`` of a card result ``a`` and its CPU twin ``b``, on the
+    card; fails on a non-finite ``a`` or past ``CPU_REL_LIMIT[tag]``."""
     import torch
 
-    a, b = a.cpu(), b.cpu()
     if a.is_floating_point() and not torch.isfinite(a).all():
         raise AssertionError(f"[{tag}] non-finite {name} on the card")
     rel = _rel(a, b)
@@ -2462,10 +2495,12 @@ def _train_step_against_cpu(cfg, batch: dict, seed: int, tag: str, what: str) ->
     from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, global_norm
     from repro_torch.train.train_step import loss_and_grads
 
+    t0 = time.perf_counter()
     model = Model(cfg)
     params = model.init(torch.Generator(device=DEVICE).manual_seed(seed))
     sides = {DEVICE: params, "cpu": _to(params, "cpu")}
     out, grads, seen, cpu_s = {}, {}, {}, 0.0
+    t_init = time.perf_counter() - t0
     for dev, p in sides.items():
         b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         t0 = time.perf_counter()
@@ -2481,12 +2516,15 @@ def _train_step_against_cpu(cfg, batch: dict, seed: int, tag: str, what: str) ->
         flipped += [(l, t) for t in _near_ties(cfg, ids, ids_cpu, probs_cpu, f"{tag} layer {l}")]
         top = probs_cpu.topk(cfg.moe.top_k + 1, dim=-1).values
         near += int((top[:, -2] - top[:, -1] < NEAR_TIE).sum())
+    t0 = time.perf_counter()
     for dev, p in sides.items():
         g = tree.map(lambda t: t.to(dev), grads["cpu"])
         p = tree.map(torch.clone, p)
         new, _, _ = adamw_update(g, adamw_init(p, AdamWConfig()), p, TRAIN_LR, AdamWConfig())
         out[dev].update({f"updated {k}": w for k, w in tree.items(new)})
         del g, p, new
+    t_adamw = time.perf_counter() - t0
+    t0 = time.perf_counter()
     if flipped:
         rels = {name: _rel(out[DEVICE][name].cpu(), b) for name, b in out["cpu"].items()}
     else:
@@ -2502,7 +2540,8 @@ def _train_step_against_cpu(cfg, batch: dict, seed: int, tag: str, what: str) ->
           f"({float(out['cpu']['aux']):.6f}); grad_norm {rels['grad_norm']:.3g}; gradients up to "
           f"{worst['grad'][0]:.3g} ({worst['grad'][1]}); AdamW-updated weights from the CPU's gradients up to "
           f"{worst['updated'][0]:.3g} ({worst['updated'][1]}){routing}; the CPU's loss and gradients took "
-          f"{cpu_s:.1f} s{'' if flipped else ' ok'}")
+          f"{cpu_s:.1f} s (init and copy to the CPU {t_init:.1f} s, AdamW on both sides {t_adamw:.1f} s, "
+          f"the comparisons {time.perf_counter() - t0:.1f} s){'' if flipped else ' ok'}")
 
 
 def _train_rows(tally) -> dict:
@@ -2723,7 +2762,7 @@ def train_full_width() -> tuple:
         flops = model.model_flops_per_token() * shape.tokens
         print(f"[train] warm step {step_s * 1e3:.2f} ms (median of {len(warm)}; range {warm[0] * 1e3:.2f}-"
               f"{warm[-1] * 1e3:.2f}; the first {times[0] * 1e3:.2f}), {shape.tokens / step_s:.1f} tokens/s, MFU "
-              f"{flops / step_s / BF16_FLOPS_PER_S:.4f} (6 N tokens / step time / {BF16_FLOPS_PER_S:g}); peak "
+              f"{flops / step_s / _card().peak_flops:.4f} (6 N tokens / step time / {_card().peak_flops:g}); peak "
               f"allocated {peak / 2**30:.3f} GiB; {card_line()}")
 
         path = latest_checkpoint(ckpt_dir)
@@ -2956,11 +2995,11 @@ def train_whisper() -> int:
         n_enc = _numel(p["enc_blocks"]) + _numel(p["ln_enc"])
         frames = WHISPER_TRAIN_BATCH * cfg.encdec.enc_positions
         executed = 6 * (n_enc * frames + (_numel(p) - n_enc - _numel(p["pos_enc"])) * shape.tokens)
-        print(f"[train-whisper] MFU {model.model_flops_per_token() * shape.tokens / step_s / BF16_FLOPS_PER_S:.4f} "
-              f"(6 N tokens / step time / {BF16_FLOPS_PER_S:g}, N = {model.cfg.active_params()}, the decoder's "
+        print(f"[train-whisper] MFU {model.model_flops_per_token() * shape.tokens / step_s / _card().peak_flops:.4f} "
+              f"(6 N tokens / step time / {_card().peak_flops:g}, N = {model.cfg.active_params()}, the decoder's "
               f"{shape.tokens} tokens only); the executed matrix work 6 (N_enc frames + N_dec tokens) = "
               f"{executed:.4g} FLOPs ({frames} frames through {n_enc} encoder parameters) at "
-              f"{executed / step_s / BF16_FLOPS_PER_S:.4f} of the peak; attention not counted in either")
+              f"{executed / step_s / _card().peak_flops:.4f} of the peak; attention not counted in either")
         saves = tally.apis[("ust_repro", "checkpoint_save")]
         path = os.path.join(work, "ckpt", f"step_{WHISPER_CKPT_AT}")
         t0 = time.perf_counter()
@@ -3043,10 +3082,10 @@ def train_moonshot() -> int:
         n_all = _numel(trainer.state["params"])
         n_act = cfg.active_params()
         print(f"[train-moe] MFU by 6 "
-              f"N_active ({n_act} active parameters) {6 * n_act * shape.tokens / step_s / BF16_FLOPS_PER_S:.4f}; "
+              f"N_active ({n_act} active parameters) {6 * n_act * shape.tokens / step_s / _card().peak_flops:.4f}; "
               f"the work executed, 6 N_all ({n_all} parameters: _moe_dense runs all {cfg.moe.num_experts} experts "
               f"on every token, {cfg.moe.num_experts / k:.1f}x the routed expert products), at "
-              f"{6 * n_all * shape.tokens / step_s / BF16_FLOPS_PER_S:.4f} of {BF16_FLOPS_PER_S:g}; attention not "
+              f"{6 * n_all * shape.tokens / step_s / _card().peak_flops:.4f} of {_card().peak_flops:g}; attention not "
               "counted in either")
         n = serve_trained(model, trainer.state["params"], MOE_TRAIN_SERVE_LENS, "train-moe-serve",
                           os.path.join(work, "serve"), cfg.num_layers, "the trained weights, from memory,")
@@ -3327,6 +3366,225 @@ def remediation_phase(train_losses: dict) -> None:
     run_examples()
 
 
+# ---------------------------------------------------------------------------
+# [dryrun]: the launch analytics held against the card
+# ---------------------------------------------------------------------------
+
+#: the dry run's worker processes (the card machine has 8 cores)
+DRYRUN_JOBS = 4
+DRYRUN_TIMEOUT_S = 300
+#: the dry run's peak must lie within this share of the card's
+PEAK_REL_LIMIT = 0.10
+#: the step's loss and gradient norm under "dots" and "full" against "none"'s
+REMAT_REL_LIMIT = 1e-2
+DRYRUN_STEPS = 3  # warm steps timed after the first
+DRYRUN_PREFILL_S = 4096
+#: the cells refused by Model.check_trainable, and why
+DRYRUN_REFUSED = {("mamba2-1.3b", "train_4k"), ("recurrentgemma-2b", "train_4k")}
+
+
+def dryrun_all_cells() -> None:
+    """``python -m repro_torch.launch.dryrun --arch all`` in its own
+    process on meta tensors: its table and time; every cell ran but the SSM
+    and hybrid train cells, refused naming ROADMAP section 4."""
+    work = tempfile.mkdtemp(prefix="thapi_dryrun_")
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "all", "--jobs", str(DRYRUN_JOBS),
+             "-o", work],
+            capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S, cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")},
+        )
+        wall = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            print(f"[dryrun] {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"[dryrun] --arch all exited {proc.returncode}: {proc.stderr[-3000:]}")
+        rows = []
+        for name in sorted(os.listdir(work)):
+            with open(os.path.join(work, name)) as f:
+                rows.append(json.load(f))
+        refused = {(r["arch"], r["shape"]) for r in rows if "refused" in r}
+        bad = [(r["arch"], r["shape"]) for r in rows if not r["ok"] and "refused" not in r]
+        if bad or refused != DRYRUN_REFUSED or any("ROADMAP section 4" not in r["refused"] for r in rows
+                                                    if "refused" in r):
+            raise AssertionError(f"[dryrun] failed cells {bad}; refused {sorted(refused)}")
+        print(f"[dryrun] all cells: {len(rows) - len(refused)} ran, {len(refused)} refused (ROADMAP section 4), "
+              f"{wall:.1f} s in its own process with {DRYRUN_JOBS} workers (meta tensors; the time should be "
+              f"60 s or less); {card_line()}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _predicted(arch: str, cfg, shape) -> dict:
+    """The dry run's cell on meta tensors, in this process."""
+    from repro_torch.launch import dryrun
+
+    res = dryrun.run_cell(arch, shape.name, cfg=cfg, shape=shape)
+    if not res["ok"]:
+        raise AssertionError(f"[dryrun] {arch} {shape.name}: {res}")
+    return res["roofline"]
+
+
+def _hold(tag: str, what: str, rf: dict, peak: int, t_ms: float, t_what: str) -> None:
+    """The dry run's peak within PEAK_REL_LIMIT of the card's, and its bound
+    at or under the measured time."""
+    bound_ms = max(rf["t_compute"], rf["t_memory"]) * 1e3
+    rel = abs(rf["peak_bytes"] - peak) / peak
+    print(f"[{tag}] {what}: peak predicted {rf['peak_bytes'] / 2**30:.3f} GiB, on the card {peak / 2**30:.3f} GiB "
+          f"(|d|/card {rel:.3f}, limit {PEAK_REL_LIMIT}); bound {bound_ms:.2f} ms ({rf['bottleneck']}: compute "
+          f"{rf['t_compute'] * 1e3:.2f} ms, memory {rf['t_memory'] * 1e3:.2f} ms) against {t_what} {t_ms:.2f} ms; "
+          f"roofline_fraction {rf['roofline_fraction']:.4f}, useful_flops_ratio {rf['useful_flops_ratio']:.4f}; "
+          f"{card_line()}")
+    if not rel <= PEAK_REL_LIMIT:
+        raise AssertionError(f"[{tag}] {what}: the dry run's peak is {rel:.3f} off the card's")
+    if not bound_ms <= t_ms:
+        raise AssertionError(f"[{tag}] {what}: the bound {bound_ms:.2f} ms is above the measured {t_ms:.2f} ms")
+
+
+def dryrun_train() -> None:
+    """Full-width h2o-danube-1.8b, TRAIN_BATCH x TRAIN_SEQ tokens, the train
+    step as ``[train]`` builds it, under remat none, dots and full, each on
+    fresh weights from one seed and released before the next: the dry run's
+    peak against the card's (after the first step, from a reset), the bound
+    at or under the warm step time, dots' and full's first loss and
+    gradient norm equal to none's, and the peaks ordered none >= dots >=
+    full.  The order is read where remat acts, over the loss and gradients
+    alone: the whole step's peak is the AdamW update's under dots and full
+    alike (the activations are freed by then), and the allocator's blocks
+    set those two apart by a few hundred KiB either way."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import Model, ShapeSpec
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.train_step import build_train_step, init_state, loss_and_grads
+
+    base = get_config(TRAIN_ARCH)
+    shape = ShapeSpec(f"train_{TRAIN_BATCH}x{TRAIN_SEQ}", "train", TRAIN_SEQ, TRAIN_BATCH)
+    toks = np.random.default_rng(11).integers(0, base.vocab_size, size=(TRAIN_BATCH, TRAIN_SEQ + 1))
+    peaks, grad_peaks, first, card = {}, {}, {}, card_line()
+    for remat in ("none", "dots", "full"):
+        cfg = dataclasses.replace(base, remat=remat)
+        rf = _predicted(TRAIN_ARCH, cfg, shape)
+        model = Model(cfg)
+        meta_state, meta_batch = dryrun.step_inputs(model, shape)
+        with torch.enable_grad(), dryrun.Counter() as c:
+            c.track(meta_state, meta_batch)
+            loss_and_grads(model, meta_state["params"], meta_batch)
+        grads_predicted = c.peak
+        tcfg = TrainConfig(peak_lr=TRAIN_LR, warmup=2, total_steps=100, adamw=dryrun._adamw_for(cfg))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        state = init_state(model, tcfg, torch.Generator(device=DEVICE).manual_seed(0))
+        batch = {"tokens": torch.as_tensor(toks[:, :-1], dtype=torch.int32, device=DEVICE),
+                 "labels": torch.as_tensor(toks[:, 1:], dtype=torch.int32, device=DEVICE)}
+        step = build_train_step(model, shape, tcfg, DEVICE)
+        _, m = step(state, batch)
+        first[remat] = (float(m["loss"]), float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(DRYRUN_STEPS):
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peaks[remat] = torch.cuda.max_memory_allocated() - before
+        torch.cuda.reset_peak_memory_stats()
+        loss_and_grads(model, state["params"], batch)
+        torch.cuda.synchronize()
+        grad_peaks[remat] = torch.cuda.max_memory_allocated() - before
+        warm = sorted(times)[len(times) // 2]
+        _hold("dryrun", f"{cfg.name} train step, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, remat={remat}", rf,
+              peaks[remat], warm, f"the warm step (median of {DRYRUN_STEPS})")
+        print(f"[dryrun] remat={remat}: the loss and gradients alone peak at {grad_peaks[remat] / 2**30:.3f} GiB "
+              f"on the card, {grads_predicted / 2**30:.3f} GiB predicted; {card}")
+        print(f"[dryrun] remat={remat}: first loss {first[remat][0]:.6f}, grad norm {first[remat][1]:.6f}; "
+              f"MFU by 6 N tokens {rf['model_flops'] / (warm / 1e3) / _card().peak_flops:.4f}; counted FLOPs "
+              f"{rf['flops']:.6g}, model FLOPs {rf['model_flops']:.6g}; {card}")
+        del state, batch, step, model, m
+        release(f"after the remat={remat} step")
+    if not grad_peaks["none"] >= grad_peaks["dots"] >= grad_peaks["full"]:
+        raise AssertionError(f"[dryrun] the card's peaks of the loss and gradients are not ordered none >= dots "
+                             f">= full: {grad_peaks}")
+    for remat in ("dots", "full"):
+        for i, name in enumerate(("loss", "grad norm")):
+            rel = abs(first[remat][i] - first["none"][i]) / abs(first["none"][i])
+            if not rel <= REMAT_REL_LIMIT:
+                raise AssertionError(f"[dryrun] remat={remat}: {name} {first[remat][i]} against none's "
+                                     f"{first['none'][i]} ({rel:.3g} > {REMAT_REL_LIMIT})")
+    print(f"[dryrun] the card's peaks of the loss and gradients none {grad_peaks['none'] / 2**30:.3f} >= dots "
+          f"{grad_peaks['dots'] / 2**30:.3f} >= full {grad_peaks['full'] / 2**30:.3f} GiB (whole steps "
+          f"{peaks['none'] / 2**30:.3f}, {peaks['dots'] / 2**30:.3f}, {peaks['full'] / 2**30:.3f}); dots' and full's "
+          f"first loss and grad norm within {REMAT_REL_LIMIT} of none's ok; {card}")
+
+
+def dryrun_prefills() -> dict:
+    """The h2o-danube-1.8b prefill (the flash kernel in each of 24 layers)
+    and the Mamba2-1.3B prefill (the SSD kernel in each of 48) of
+    DRYRUN_PREFILL_S tokens, B=1, through the kernels: the dry run's peak
+    against the card's, its bound at or under the profiled busy time, and
+    the launches of one prefill, counted from 0; returns them."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, ShapeSpec
+
+    shape = ShapeSpec(f"prefill_{DRYRUN_PREFILL_S}", "prefill", DRYRUN_PREFILL_S, 1)
+    launches = {}
+    for arch, kernel, names in (("h2o-danube-1.8b", "flash_attention", ("flash_attention_wgmma_kernel",)),
+                                ("mamba2-1.3b", "ssd_scan", SSD_BF16_PASSES)):
+        cfg = get_config(arch)
+        per = cfg.num_layers  # one launch a layer
+        rf = _predicted(arch, cfg, shape)
+        model = Model(cfg)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+        toks = np.random.default_rng(12).integers(0, cfg.vocab_size, size=(1, DRYRUN_PREFILL_S))
+        batch = {"tokens": torch.as_tensor(toks, dtype=torch.int32, device=DEVICE)}
+
+        def prefill():
+            with torch.no_grad():
+                return model.prefill(params, batch, DRYRUN_PREFILL_S)
+
+        prefill()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        prefill()
+        torch.cuda.synchronize()
+        ran = read_launches()
+        peak = torch.cuda.max_memory_allocated() - before
+        if ran[kernel] != per or any(n for k, n in ran.items() if k != kernel):
+            raise AssertionError(f"[dryrun] {arch} prefill: launches {ran}, want {per} of {kernel} only")
+        launches[kernel] = ran[kernel]
+        busy = profile_step(prefill, f"{arch} S={DRYRUN_PREFILL_S} prefill", "dryrun", names, per * len(names))
+        _, done_ms = host_vs_device(prefill)
+        t_ms, t_what = (busy, "the profiled device busy time") if busy is not None else (
+            done_ms, "the warm prefill to completion (the profiler recorded no device time)")
+        _hold("dryrun", f"{cfg.name} prefill, 1 x {DRYRUN_PREFILL_S} tokens, {per} {kernel} launches", rf, peak,
+              t_ms, t_what)
+        del params, batch, model
+        release(f"after the {arch} prefill")
+    return launches
+
+
+def dryrun_phase() -> dict:
+    """[dryrun]: every cell on meta tensors, then danube's train step and two
+    prefills on the card against the dry run; returns the prefills' kernel
+    launches."""
+    release("before [dryrun]")
+    dryrun_all_cells()
+    dryrun_train()
+    return dryrun_prefills()
+
+
 def check_full_mode_fence() -> None:
     """In ``full`` mode a step on the card is fenced by polling its CUDA
     event: ``poll_ready`` pairs instead of ``block_until_ready``."""
@@ -3446,39 +3704,53 @@ def main(argv=()) -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    build_kernels()
+    t_start, seconds = time.perf_counter(), {}
+
+    def timed(name, fn, *args):
+        """``fn(*args)``, its seconds printed and kept for the summary."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        print(f"[time] {name}: {seconds[name]:.1f} s")
+        return out
+
+    timed("build", build_kernels)
     # Mamba2's phases first, in slice 1's order, so that their readings are
     # taken after the same work as before; then RecurrentGemma's, then
     # h2o-danube-1.8b's
-    kernels = [check_ssd()]
-    check_model_against_cpu()
+    kernels = [timed("ssd", check_ssd)]
+    timed("model", check_model_against_cpu)
     launches = dict.fromkeys(("ssd_scan", "rglru_scan", "flash_attention"), 0)
-    for name, n in serve_full_width().items():
+    for name, n in timed("serve", serve_full_width).items():
         launches[name] += n
-    kernels.append(check_rglru())
-    check_hybrid_against_cpu()
-    for name, n in serve_recurrentgemma().items():
+    kernels.append(timed("rglru", check_rglru))
+    timed("model-rg", check_hybrid_against_cpu)
+    for name, n in timed("serve-rg", serve_recurrentgemma).items():
         launches[name] += n
-    flash = check_flash()
+    flash = timed("flash", check_flash)
     kernels.append(flash)
-    check_rope_against_cpu()
+    timed("rope", check_rope_against_cpu)
     for S, cache_len in DANUBE_CPU_CASES:
-        check_dense_against_cpu(S, cache_len)
-    for name, n in serve_danube().items():
+        timed(f"model-dn {S}", check_dense_against_cpu, S, cache_len)
+    for name, n in timed("serve-dn", serve_danube).items():
         launches[name] += n
-    check_full_mode_fence()
-    serve_launcher()
-    iprof_phase()
-    live_phase()
+    timed("fence", check_full_mode_fence)
+    timed("launcher", serve_launcher)
+    timed("iprof", iprof_phase)
+    timed("live", live_phase)
     release("before [flash] at the new families' shapes")
-    err, rows = check_flash_families()
+    err, rows = timed("flash-families", check_flash_families)
     flash["max_abs_err"] = max(flash["max_abs_err"], err)
     flash["shapes"] += rows
-    launches["flash_attention"] += serve_new_families()
-    flash_train, train_losses = train_phase()
+    launches["flash_attention"] += timed("serve-families", serve_new_families)
+    flash_train, train_losses = timed("train", train_phase)
     launches["flash_attention"] += flash_train
-    launches["flash_attention"] += train_families_phase()
-    remediation_phase(train_losses)
+    launches["flash_attention"] += timed("train-moe-audio", train_families_phase)
+    timed("remediation", remediation_phase, train_losses)
+    for name, n in timed("dryrun", dryrun_phase).items():
+        launches[name] += n
+    print(f"[time] the phases: {'; '.join(f'{k} {v:.1f} s' for k, v in seconds.items())}; all "
+          f"{time.perf_counter() - t_start:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if not k["launches"]:

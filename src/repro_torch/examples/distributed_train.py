@@ -729,6 +729,11 @@ def run_chaos(args) -> int:
     )
 
     rank_source = {}  # rank id → stream source id, learned from the master
+
+    def _learn_sources():
+        for src in list(master.ranks(copy=False)):
+            rank_source.setdefault(_rank_of(src), src)
+
     hung = set()
     ok = True
     fault_kind = (args.inject_fault or "").split(":", 1)[0]
@@ -740,8 +745,7 @@ def run_chaos(args) -> int:
         deadline = time.time() + args.chaos_timeout
         while time.time() < deadline:
             monitor.tick()
-            for src in list(master.ranks(copy=False)):
-                rank_source.setdefault(_rank_of(src), src)
+            _learn_sources()
             for r in range(nranks):
                 for ln in _acks(r):
                     if ln.startswith("hung:"):
@@ -818,6 +822,18 @@ def run_chaos(args) -> int:
                     ok = False
                     print(f"[chaos] FAIL: rank {r} did not exit on finish",
                           file=sys.stderr)
+
+    # A rank whose first frame landed while a hook held the loop (the
+    # replacement's admission wait, seconds under load) is unknown to the
+    # loop if the run settles on that same tick: learn the sources again
+    # now that every worker has exited and flushed its last frame.
+    deadline = time.time() + 5.0
+    _learn_sources()
+    while time.time() < deadline and not all(
+        r in rank_source for r in range(nranks) if find_aggregates(out_dirs[r])
+    ):
+        time.sleep(0.1)
+        _learn_sources()
 
     # -- verification -------------------------------------------------------------
     # (1) work conservation: survivors' completed steps + the evicted rank's

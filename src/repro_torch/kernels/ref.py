@@ -2,7 +2,9 @@
 
 Mirrors ``src/repro/kernels/ref.py``: the CPU path runs these, the card's
 kernels are held against them, and the tests hold them against the JAX
-references.
+references.  Beside each kernel's plain version, a shape function gives
+empty outputs of the kernel's shapes and dtypes on the inputs' device: the
+dry run's path on meta tensors, which have no data.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: Optional[int] =
     The query at row i sits at position i + T - S.  Scores in fp32, masked
     to -1e30 (finite: a row with no unmasked key gets the uniform softmax,
     the mean of v over all T keys), softmax in fp32, probabilities cast to
-    q's dtype before the PV product.
+    q's dtype before the PV product.  The output is contiguous, as the
+    kernel's is.
     """
     B, S, H, hd = q.shape
     T, Kv = k.shape[1], k.shape[2]
@@ -40,7 +43,12 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: Optional[int] =
         mask = mask & (kj > qi - window)
     s = torch.where(mask, s, -1e30)
     p = torch.softmax(s, dim=-1).to(q.dtype)
-    return torch.einsum("bkgst,btkd->bskgd", p, v).reshape(B, S, H, hd)
+    return torch.einsum("bkgst,btkd->bskgd", p, v).reshape(B, S, H, hd).contiguous()
+
+
+def flash_attention_shape(q):
+    """The flash kernel's output: ``[B,S,H,d]`` in q's dtype."""
+    return torch.empty_like(q)
 
 
 # ---------------------------------------------------------------------------
@@ -80,6 +88,13 @@ def rglru_ref(x, r, i, lam, h0=None, c: float = 8.0):
     a, b = rglru_gates_ref(x, r, i, lam, c)
     h, h_last = rglru_scan_ref(a, b, h0)
     return h.to(x.dtype), h_last
+
+
+def rglru_shape(x):
+    """The RG-LRU kernel's outputs: y ``[B,S,C]`` in x's dtype, h_last
+    ``[B,C]`` fp32."""
+    B, _, C = x.shape
+    return torch.empty_like(x), torch.empty((B, C), dtype=torch.float32, device=x.device)
 
 
 def rglru_step_ref(h, x_t, r_t, i_t, lam, c: float = 8.0):
@@ -147,6 +162,13 @@ def ssd_ref(x, dt, A_log, Bm, Cm, D, chunk: int = 64, state0: Optional[torch.Ten
     y = (y_intra + y_inter).reshape(Bsz, S, H, Pd)
     y = y + x.float() * D.float()[None, None, :, None]
     return y.to(x.dtype), st
+
+
+def ssd_shape(x, Bm):
+    """The SSD kernel's outputs: y ``[B,S,H,P]`` in x's dtype, the final
+    state ``[B,H,P,N]`` fp32."""
+    B, _, H, P = x.shape
+    return torch.empty_like(x), torch.empty((B, H, P, Bm.shape[-1]), dtype=torch.float32, device=x.device)
 
 
 def ssd_step_ref(state, x_t, dt_t, A_log, B_t, C_t, D):

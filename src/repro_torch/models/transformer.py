@@ -29,8 +29,10 @@ values, rolled so that position ``p`` sits at row ``p % eff``, or fills rows
 
 from __future__ import annotations
 
+import functools
+
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.kernels import ops as kops
 
@@ -75,17 +77,43 @@ def specs(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
+#: the matrix products the port's models reach: projections and MLPs as
+#: ``mm`` (or a ``bmm`` over a batch of one), attention and expert layers as ``bmm``
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+             torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``: save the
+    output of a matrix product that has no batch dimensions, recompute the
+    rest.  The aten name does not say which products those are: an einsum
+    ``"bsd,dhk->bshk"`` reaches a ``bmm`` over a batch of one, and the MoE
+    family's ``"td,edf->tef"`` (no batch dimension: e is the weight's) a
+    ``bmm`` whose token operand is broadcast over the experts (stride 0).
+    A ``bmm`` whose operands both step along its batch is batched, as the
+    attention einsums and the experts' down projection are.  An attention
+    over one batch row and one KV head (B·Kv = 1, no config trains so)
+    would reach a ``bmm`` over a batch of one and be saved."""
+    if op in _PRODUCTS[:2]:
+        return CheckpointPolicy.MUST_SAVE
+    if op in _PRODUCTS[2:]:
+        a, b = args[-2], args[-1]
+        if a.shape[0] == 1 or a.stride(0) == 0 or b.stride(0) == 0:
+            return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _remat(cfg: ModelConfig, fn):
     """``remat="full"`` keeps only each block's inputs and recomputes the
-    block in the backward pass (``jax.checkpoint``); ``"none"`` keeps every
-    activation."""
+    block in the backward pass (``jax.checkpoint``); ``"dots"`` also keeps
+    the outputs of the block's matrix products without batch dimensions
+    (``_dots_policy``); ``"none"`` keeps every activation."""
     if cfg.remat == "full":
         return lambda *args: checkpoint(fn, *args, use_reentrant=False)
     if cfg.remat == "dots":
-        raise NotImplementedError(
-            f"{cfg.name}: remat='dots' (keep the matmul outputs) is ported with the sharded "
-            "trainer, ROADMAP item 5; a config that sets it does not train on one card"
-        )
+        return lambda *args: checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _dots_policy))
     return fn
 
 

@@ -14,6 +14,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from torch_devices import elsewhere
 from tests.hypothesis_optional import given, settings, st
 
 from repro.core import TraceConfig as JaxTraceConfig
@@ -163,6 +164,8 @@ def test_flash_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_ops_flash_attention_refuses_other_devices():
-    td = {k: to_torch(v).to("meta") for k, v in qkv_np(1, 8, 8, 2, 2, 16).items()}
+    """A meta tensor takes the shape function (the dry run's route); a
+    device with no kernel, plain version or shape function raises."""
+    td = {k: elsewhere(to_torch(v)) for k, v in qkv_np(1, 8, 8, 2, 2, 16).items()}
     with pytest.raises(ValueError, match="device"):
         ops.flash_attention(**td)

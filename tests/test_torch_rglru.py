@@ -13,6 +13,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from torch_devices import elsewhere
 
 from repro.kernels import ref as jref
 from repro.kernels.rglru_scan import rglru_pallas
@@ -166,6 +167,8 @@ def test_rglru_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_ops_rglru_refuses_other_devices():
-    t = {k: to_torch(v).to("meta") for k, v in rglru_np(1, 4, 32).items()}
+    """A meta tensor takes the shape function (the dry run's route); a
+    device with no kernel, plain version or shape function raises."""
+    t = {k: elsewhere(to_torch(v)) for k, v in rglru_np(1, 4, 32).items()}
     with pytest.raises(ValueError, match="device"):
         ops.rglru(**t)

@@ -13,6 +13,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from torch_devices import elsewhere
 
 from repro.kernels import ref as jref
 from repro.kernels.ssd_scan import ssd_pallas
@@ -130,6 +131,8 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_ops_ssd_refuses_other_devices():
-    t = {k: v.to("meta") for k, v in torch_args(ssd_np(1, 8, 64, 64, 1, 128)).items()}
+    """A meta tensor takes the shape function (the dry run's route); a
+    device with no kernel, plain version or shape function raises."""
+    t = {k: elsewhere(v) for k, v in torch_args(ssd_np(1, 8, 64, 64, 1, 128)).items()}
     with pytest.raises(ValueError, match="device"):
         ops.ssd(**t, chunk=8)

@@ -444,6 +444,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"tree.py", "optim/adamw.py", "optim/schedule.py", "optim/compression.py", "data/pipeline.py",
             "checkpoint/checkpointer.py", "train/train_step.py", "train/trainer.py", "launch/train.py",
             "examples/quickstart.py"} <= rel
+    assert {"launch/roofline.py", "launch/dryrun.py"} <= rel
     bad = []
     for p in srcs:
         with open(p) as f:

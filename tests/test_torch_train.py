@@ -15,12 +15,16 @@ frames) ones.
 
 import dataclasses
 import functools
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.utils._pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs import get_config as jax_get_config
 from repro.data import DataConfig as JaxDataConfig
@@ -29,6 +33,8 @@ from repro.data import pipeline as jax_pipeline
 from repro.models import Model as JaxModel
 from repro.models import ShapeSpec as JaxShapeSpec
 from repro.models import layers as jl
+from repro.models import moe as jax_moe
+from repro.models import transformer as jax_transformer
 from repro.optim import AdamWConfig as JaxAdamWConfig
 from repro.optim import adamw_init as jax_adamw_init
 from repro.optim import adamw_update as jax_adamw_update
@@ -40,6 +46,7 @@ from repro_torch.convert import params_from_jax, state_from_jax
 from repro_torch.data import DataConfig, SyntheticPipeline, make_eval_batch
 from repro_torch.models import Model, ShapeSpec
 from repro_torch.models import layers as tl
+from repro_torch.models import moe, transformer
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, global_norm, warmup_cosine
 from repro_torch.optim import compression as tc
 
@@ -234,11 +241,100 @@ def test_remat_full_gradients_match_jax_for_moe_and_audio(arch):
         assert np.abs(g.numpy() - w).max() <= GRAD_TOL * max(np.abs(w).max(), 1e-30), key
 
 
-def test_remat_dots_names_the_roadmap_item():
-    tm = Model(dataclasses.replace(get_config(DANUBE).smoke(), remat="dots"))
-    _, _, _, tp = pair(DANUBE)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        tm.loss(tp, torch_batch(train_batch(tm.cfg, 8, seed=0)))
+def _grads(tm, tp, b):
+    p = tree.map(lambda t: t.detach().requires_grad_(True), tp)
+    return torch.autograd.grad(tm.loss(p, torch_batch(b))[0], tree.leaves(p))
+
+
+@pytest.mark.parametrize("arch", TRAINED)
+def test_remat_dots_gives_the_gradients_of_none(arch):
+    """``remat="dots"`` recomputes in the backward pass what it did not
+    keep; in fp32 the gradients are ``"none"``'s within 1e-6."""
+    _, _, tm, tp = pair(arch)
+    dots = Model(dataclasses.replace(tm.cfg, remat="dots"))
+    b = train_batch(tm.cfg, 16, seed=21)
+    for g, w in zip(_grads(dots, tp, b), _grads(tm, tp, b), strict=True):
+        assert float((g - w).abs().max()) <= 1e-6 * max(float(w.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("arch", [DANUBE, MOONSHOT, WHISPER])
+def test_remat_dots_gradients_match_jax(arch):
+    """``remat="dots"`` on both sides (JAX: ``checkpoint_dots_with_no_batch_dims``)."""
+    jm, jp, tm, tp = pair(arch, remat="dots")
+    assert tm.cfg.remat == jm.cfg.remat == "dots"
+    b = train_batch(tm.cfg, 16, seed=12)
+    want = jax.grad(lambda p: jm.loss(p, jax_batch(b))[0])(jp)
+    for (key, w), g in zip(tree.items(jax.tree_util.tree_map(np.asarray, want)), _grads(tm, tp, b), strict=True):
+        assert np.abs(g.numpy() - w).max() <= GRAD_TOL * max(np.abs(w).max(), 1e-30), key
+
+
+def _no_batch_dot_sizes(jaxpr) -> list:
+    """Element counts of the outputs of the ``dot_general``s with no batch
+    dimensions in ``jaxpr`` and the jaxprs nested in it."""
+    out = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general" and not eqn.params["dimension_numbers"][1][0]:
+            out.append(int(np.prod(eqn.outvars[0].aval.shape)))
+        for v in eqn.params.values():
+            inner = getattr(v, "jaxpr", v)
+            if hasattr(inner, "eqns"):
+                out += _no_batch_dot_sizes(inner)
+    return out
+
+
+def _kept_sizes(fn, *inputs) -> list:
+    """Element counts (fp32) of the storages made inside ``fn``'s forward
+    that are still alive when it returns, other than its outputs': what
+    autograd keeps for the backward pass."""
+    made = []
+
+    class Spy(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            made.extend(weakref.ref(t.untyped_storage()) for t in pytree.tree_leaves(out)
+                        if isinstance(t, torch.Tensor))
+            return out
+
+    fn(*inputs)  # the RoPE table is made once, and cached
+    with Spy():
+        out = fn(*inputs)
+    gc.collect()
+    skip = {id(t.untyped_storage()) for t in pytree.tree_leaves((inputs, out)) if isinstance(t, torch.Tensor)}
+    alive = {id(st): st for st in (r() for r in made) if st is not None and id(st) not in skip}
+    return sorted(st.nbytes() // 4 for st in alive.values())
+
+
+@pytest.mark.parametrize("arch", [DANUBE, MOONSHOT])
+def test_remat_dots_keeps_exactly_the_no_batch_products(arch):
+    """Inside one block, ``"dots"`` keeps for the backward pass the outputs
+    of the products that have no batch dimensions, as the JAX policy
+    counts them from the ``dot_general``s' dimension numbers: the Q, K, V
+    and output projections and the MLP's three products (danube); the
+    projections, the router and the experts' gate and up products, whose
+    expert axis is the weight's (moonshot).  ``"full"`` keeps nothing,
+    ``"none"`` keeps more.  (JAX's own residuals drop those the backward
+    pass does not read, such as the MLP's down product.)"""
+    jm, jp, tm, tp = pair(arch)
+    B, S = 2, 8
+    x = np.random.default_rng(3).standard_normal((B, S, tm.cfg.d_model)).astype(np.float32)
+    jpl = jax.tree_util.tree_map(lambda a: a[0], jp["blocks"])
+    jpos = jnp.arange(S)[None]
+    if tm.cfg.family == "moe":
+        jfn = lambda pl, h: jax_moe.block(jm.cfg, pl, h, jpos, None)[0]  # noqa: E731
+    else:
+        jfn = lambda pl, h: jax_transformer.block(jm.cfg, pl, h, jpos)  # noqa: E731
+    want = sorted(_no_batch_dot_sizes(jax.make_jaxpr(jfn)(jpl, jnp.asarray(x)).jaxpr))
+    block = moe.block if tm.cfg.family == "moe" else transformer.block
+    pl = tree.map(lambda t: t[0].detach().requires_grad_(True), tp["blocks"])
+    h = torch.from_numpy(x).requires_grad_(True)
+    pos = torch.arange(S)[None]
+    kept = {}
+    for remat in ("none", "dots", "full"):
+        cfg = dataclasses.replace(tm.cfg, remat=remat)
+        kept[remat] = _kept_sizes(transformer._remat(cfg, lambda p, y, q, cfg=cfg: block(cfg, p, y, q)[0]), pl, h, pos)
+    assert kept["dots"] == want and len(want) == 7
+    assert kept["full"] == []
+    assert len(kept["none"]) > len(kept["dots"])
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])
