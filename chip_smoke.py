@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # from the root of a checkout, one CUDA card
     python3 chip_smoke.py --compare [SRC]  # this slice's readings, with the package under SRC
+    python3 chip_smoke.py --mesh-rank R STORE DIR CARD  # one rank of [mesh], as the phase spawns it
 
 Phases, each fatal on failure:
   1. build every CUDA source under src/repro_torch/csrc/ (one nvcc each,
@@ -168,7 +169,30 @@ Phases, each fatal on failure:
      dots >= full, roofline_fraction, useful_flops_ratio and MFU printed;
      then the danube (24 flash launches) and Mamba2-1.3B (48 SSD launches)
      prefills of 4096 tokens through the kernels, held the same way against
-     the profiled busy time, their launches added to the kernels line.
+     the profiled busy time, their launches added to the kernels line;
+ 13. [mesh], last: four processes on the one card (NCCL refuses two ranks
+     on one device), a gloo group over a FileStore in a temporary
+     directory, each rank's exit code checked and the phase bounded by
+     MESH_TIMEOUT_S.  (a) moonshot-v1-16b-a3b at full width and 2 of its 48
+     layers, 16 of its 64 experts a rank on the 1x4 mesh: a 2 x 1024
+     prefill (the sequence path: all-to-alls, the flash kernel in every
+     layer) and 4 eager decode steps (the replicated path; gloo collectives
+     cannot be captured in a CUDA graph), then the same decode steps on a
+     2x2 mesh with serve_2d (the 2-D path), held in fp32 and in bf16 at
+     capacity 8.0 against the one-rank _moe_dense path in the same dtype on
+     rank 0, logits row by row and caches position by position within the
+     dtype's MESH_HOLD limit (a near tie of the router counted, not held),
+     the bf16 runs timed; then at the config's own 1.25 the prefill timed
+     and, in an untimed pass, the share of assignments dropped per layer;
+     (b) compressed_mean of a full-width danube gradient leaf over the four
+     ranks within the int8 bound of the plain mean; (c) full-width
+     h2o-danube-1.8b at 2 of its 24 layers trained 3 steps of 4 x 1024
+     tokens on the 2x2 mesh in tp mode, each rank holding its blocks of the
+     state (its bytes printed against the whole), the losses within
+     MESH_LOSS_LIMIT and the gradient norms within MESH_GNORM_REL of the
+     one-rank step.
+     Every time there names the card, its power limit and "4 ranks sharing
+     one card over gloo".
      Every phase prints its seconds, and the run ends with all of them.
 The reduced-depth fp32 models of phases 2-4, 8, 9 and 11 are held to the CPU by
 ``_rel`` (max|card - cpu| / max|cpu|) under ``CPU_REL_LIMIT``.
@@ -190,6 +214,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -3585,6 +3610,529 @@ def dryrun_phase() -> dict:
     return dryrun_prefills()
 
 
+# ---------------------------------------------------------------------------
+# [mesh]: four ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4
+#: each rank's own time limit, and the phase's (the ranks run at once)
+MESH_TIMEOUT_S = 300
+MESH_SEED = 28
+#: moonshot-v1-16b-a3b at full width, MESH_LAYERS of its 48 layers
+MESH_LAYERS = 2
+MESH_PROMPT = (2, 1024)  # (rows, tokens) of the meshed prefill
+MESH_DECODE_STEPS = 4
+#: the capacity factor of the held comparison (the JAX multi-device test's):
+#: no assignment drops, so the expert-parallel paths compute _moe_dense's
+#: function; the config's own 1.25 is run for its drop share
+MESH_CF = 8.0
+#: by dtype: (the limit of max|mesh - one rank| / max|one rank| of
+#: moonshot's logits and caches, row by row; the near tie of the router
+#: under which a row or position is counted and not held: a layer's k-th
+#: and (k+1)-th router logits closer than this many standard deviations of
+#: the layer's router logits, where rounding in another order may swap the
+#: experts; the largest share of rows and positions that may be at a near
+#: tie).  fp32: about ten times the largest reading of slice 14's runs on
+#: an H100 (1.62e-6).  bf16: the runs read 0.0064-0.0077 and, at one row
+#: of one 2-D decode step, 0.249 (a top-k set flipped at a near tie); a
+#: bf16 rounding of the hidden values moves a logit by under 2**-8 of the
+#: logits' spread, so ties are taken five times wider than that, which at
+#: random init (10 % of the prefill's margins under 0.0114 of the spread)
+#: leaves 0.141 of the rows and positions unheld
+MESH_HOLD = {"fp32": (2e-5, 1e-4, 0.1), "bf16": (2e-2, 2e-2, 0.25)}
+#: h2o-danube-1.8b at full width, MESH_TRAIN_LAYERS of its 24 layers
+MESH_TRAIN_LAYERS = 2
+MESH_TRAIN_SHAPE = (4, 1024)  # (rows, tokens) a step
+MESH_TRAIN_STEPS = 3
+#: |loss on the 2x2 mesh - loss of the one-rank step|, bf16 weights (the
+#: data shards' gradients are rounded to bf16 before their fp32 sum): about
+#: ten times the largest reading of slice 14's runs on an H100 (1.26e-4)
+MESH_LOSS_LIMIT = 1e-3
+#: |grad norm on the 2x2 mesh - the one-rank step's| / the one-rank step's:
+#: about fourteen times the largest reading of slice 14's runs on an H100
+#: (3.49e-6); a wrong mean over the ranks would move it by 2x or more
+MESH_GNORM_REL = 5e-5
+#: the full-width danube gradient leaf of the compressed mean (one layer's
+#: MLP up projection, d_model x d_ff)
+MESH_GRAD_LEAF = (2560, 6912)
+
+
+def _mesh_say(rank: int, msg: str) -> None:
+    print(f"[mesh r{rank}] {msg}", flush=True)
+
+
+def _mesh_sync() -> None:
+    """The card idle and every rank at the same point."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.synchronize()
+    dist.barrier()
+
+
+def _served(full: dict, axes: dict, part, mesh) -> dict:
+    """Moonshot's weights as a meshed server holds them: each expert leaf
+    this rank's block under ``part``'s spec (not gathered at use), the rest
+    whole."""
+    from repro_torch.models import moe
+    from repro_torch.sharding import Placed, local_block
+
+    blocks = dict(full["blocks"])
+    for k in moe.EXPERT_LEAVES:
+        w = full["blocks"][k]
+        spec = part.pspec(axes[k], tuple(w.shape))
+        blocks[k] = Placed(local_block(w, spec, mesh).clone(), spec, mesh, whole_at_use=False, stacked=True)
+    return {**full, "blocks": blocks}
+
+
+def _mesh_serve(rank: int, cfg, full: dict, toks, dtoks, meshes: dict, res: dict, tag: str) -> dict:
+    """The meshed prefill (the sequence path) and MESH_DECODE_STEPS eager
+    decode steps (the replicated path) on the 1x4 mesh, then the same
+    decode steps from the prefill's cache on the 2x2 mesh with serve_2d
+    (the 2-D path), each rank writing its 2x2 rows to the phase's directory.
+    Returns the 1x4 outputs, the times and the flash launches."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Model
+    from repro_torch.sharding import Partitioner
+
+    axes = Model(cfg).axes()["blocks"]
+    m14, m22 = meshes["1x4"], meshes["2x2"]
+    p14 = _served(full, axes, Partitioner(m14, mode="tp"), m14)
+    p22 = _served(full, axes, Partitioner(m22, mode="serve2d"), m22)
+    B, S = toks.shape
+    cache_len = S + MESH_DECODE_STEPS
+    out: dict = {"launches": 0}
+    with torch.no_grad():
+        _mesh_sync()
+        fa.launches = 0
+        t0 = time.perf_counter()
+        logits, cache = Model(cfg, m14).prefill(p14, {"tokens": toks}, cache_len)
+        torch.cuda.synchronize()
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        out["launches"] = fa.launches
+        snap = {k: v.clone() for k, v in cache.items()}
+        out["prefill"] = logits
+        out["decode_ms"], out["decode_2d_ms"] = [], []
+        for i in range(MESH_DECODE_STEPS):
+            _mesh_sync()
+            t0 = time.perf_counter()
+            lg, cache = Model(cfg, m14).decode_step(p14, cache, {"token": dtoks[i]})
+            torch.cuda.synchronize()
+            out["decode_ms"].append((time.perf_counter() - t0) * 1e3)
+            out[f"decode{i}"] = lg.clone()
+        out["k"], out["v"] = cache["k"], cache["v"]
+        d = m22.index("data")
+        rows = slice(d * (B // 2), (d + 1) * (B // 2))
+        c22 = {k: (v[:, rows] if k != "len" else v[rows]).clone() for k, v in snap.items()}
+        m2d = Model(dataclasses.replace(cfg, serve_2d=True), m22)
+        for i in range(MESH_DECODE_STEPS):
+            _mesh_sync()
+            t0 = time.perf_counter()
+            lg, c22 = m2d.decode_step(p22, c22, {"token": dtoks[i][rows]})
+            torch.cuda.synchronize()
+            out["decode_2d_ms"].append((time.perf_counter() - t0) * 1e3)
+            out[f"2d{i}"] = lg.clone()
+            torch.save({"logits": lg.cpu(), "k": c22["k"].cpu(), "v": c22["v"].cpu(), "rows": (rows.start, rows.stop)},
+                       os.path.join(res["dir"], f"{tag}_r{rank}_2d_{i}.pt"))
+        out["snap"] = snap
+        out["p14"] = p14
+    for name, t in out.items():
+        if isinstance(t, torch.Tensor) and t.is_floating_point() and not torch.isfinite(t).all():
+            raise AssertionError(f"[mesh r{rank}] non-finite {tag} {name}")
+    return out
+
+
+def _mesh_moonshot(rank: int, card: str, res: dict) -> None:
+    """(a): moonshot on the meshes, the expert-parallel paths against the
+    one-rank _moe_dense path (rank 0 runs it) in fp32 and in bf16, the
+    model's dtype, at capacity 8.0; the bf16 runs are the timed ones.  Then
+    at the config's own 1.25 the prefill is timed, and an untimed pass
+    counts the assignments dropped per layer (``moe.kept_assignments``)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import describe, make_local_mesh
+    from repro_torch.models import Model, moe
+
+    where = f"({card}; {MESH_RANKS} ranks sharing one card over gloo)"
+    own = dataclasses.replace(get_config(MOONSHOT), num_layers=MESH_LAYERS)
+    cfg = dataclasses.replace(own, moe=dataclasses.replace(own.moe, capacity_factor=MESH_CF))
+    L = cfg.num_layers
+    meshes = {"1x4": make_local_mesh(model_parallel=MESH_RANKS), "2x2": make_local_mesh(model_parallel=2)}
+    rng = np.random.default_rng(MESH_SEED)
+    B, S = MESH_PROMPT
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(B, S)), dtype=torch.int32, device=DEVICE)
+    dtoks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(MESH_DECODE_STEPS, B)), dtype=torch.int32,
+                            device=DEVICE)
+    launched = 0
+    for tag, c in (("fp32", dataclasses.replace(cfg, dtype="float32")), ("bf16", cfg)):
+        full = Model(c).init(torch.Generator(device=DEVICE).manual_seed(MESH_SEED))
+        out = _mesh_serve(rank, c, full, toks, dtoks, meshes, res, tag)
+        launched += out["launches"]
+        w = out["p14"]["blocks"]["w_gate"]
+        _mesh_say(rank, f"moonshot at {L} of 48 layers, full width; mesh {describe(meshes['1x4'])}: experts "
+                        f"{w.local.shape[1]} of {cfg.moe.num_experts} on this rank (w_gate block "
+                        f"{tuple(w.local.shape)}, spec {w.spec}); {tag} prefill {B} x {S}, sequence path, capacity "
+                        f"{MESH_CF}: {out['prefill_ms']:.1f} ms; decode steps, replicated path: "
+                        f"{', '.join(f'{t:.1f}' for t in out['decode_ms'])} ms (eager: gloo collectives cannot be "
+                        f"captured in a CUDA graph); 2x2 serve_2d decode steps, 2-D path: "
+                        f"{', '.join(f'{t:.1f}' for t in out['decode_2d_ms'])} ms {where}")
+        _mesh_sync()
+        if rank == 0:
+            _mesh_reference(c, full, toks, dtoks, out, res, where, tag)
+        del full
+        if tag == "fp32":
+            del out
+            torch.cuda.empty_cache()
+        _mesh_sync()
+    with torch.no_grad():
+        _mesh_sync()
+        fa.launches = 0
+        t0 = time.perf_counter()
+        Model(own, meshes["1x4"]).prefill(out["p14"], {"tokens": toks}, S + MESH_DECODE_STEPS)
+        torch.cuda.synchronize()
+        t_own = (time.perf_counter() - t0) * 1e3
+        launched += fa.launches
+    fa.launches = 0
+    kept = _count_kept(own, meshes["1x4"], out["p14"], toks, out["snap"], dtoks[0])
+    launched += fa.launches
+    # the prefill's sequence path: each rank routes its S/ep slice, so the
+    # ranks' counts add up; the decode's replicated path: every rank routes
+    # every row, and its counts are this rank's
+    counts = torch.tensor([[int((~k).sum()), k.numel()] for k in kept], dtype=torch.int64)
+    seq = counts[:L].clone()
+    dist.all_reduce(seq)
+    seq, dec = seq.tolist(), counts[L:].tolist()
+    _mesh_say(rank, f"the config's own capacity {own.moe.capacity_factor}: bf16 prefill {B} x {S} {t_own:.1f} ms "
+                    f"{where}")
+    if rank == 0:
+        print(f"[mesh] capacity factor {own.moe.capacity_factor}, bf16: assignments dropped per layer, prefill "
+              "(sequence path) " + ", ".join(f"layer {l} {a}/{n} = {a / n:.4f}" for l, (a, n) in enumerate(seq))
+              + "; decode (replicated path) " + ", ".join(f"layer {l} {a}/{n}" for l, (a, n) in enumerate(dec))
+              + f" (an expert's capacity ceil(T k cf / ep) is at least T when top_k x cf = "
+              f"{own.moe.top_k * own.moe.capacity_factor:g} >= ep = {MESH_RANKS}: the decode paths cannot drop)",
+              flush=True)
+    res["flash_launches"] = launched
+    res["moonshot_ms"] = {"prefill": out["prefill_ms"], "decode": out["decode_ms"], "decode_2d": out["decode_2d_ms"],
+                          "prefill_own_cf": t_own, "dropped": seq}
+    if launched != 4 * L:
+        raise AssertionError(f"[mesh r{rank}] flash_attention launched {launched} times: want {L} per prefill x 4 "
+                             "prefills, none in decode")
+    del out
+    torch.cuda.empty_cache()
+    _mesh_sync()
+
+
+def _count_kept(cfg, mesh, params, toks, cache, token) -> list:
+    """Untimed: a prefill and a decode step with every ``moe_ffn`` call
+    preceded by ``moe.kept_assignments`` on its inputs; this rank's kept
+    masks, layer by layer (the prefill's, then the decode step's)."""
+    import torch
+
+    from repro_torch.models import Model, moe
+
+    kept, ffn = [], moe.moe_ffn
+
+    def counting(c, p, x, m=None):
+        kept.append(moe.kept_assignments(c, p, x, m))
+        return ffn(c, p, x, m)
+
+    moe.moe_ffn = counting
+    try:
+        with torch.no_grad():
+            model = Model(cfg, mesh)
+            model.prefill(params, {"tokens": toks}, toks.shape[1] + MESH_DECODE_STEPS)
+            model.decode_step(params, cache, {"token": token})
+    finally:
+        moe.moe_ffn = ffn
+    return kept
+
+
+def _mesh_reference(cfg, full, toks, dtoks, out: dict, res: dict, where: str, tag: str) -> None:
+    """Rank 0: the same prefill and decode steps through the one-rank
+    _moe_dense path in the same dtype, and the meshed results held against
+    it, row by row (logits) and position by position (caches): max|d| /
+    max|ref| under the dtype's MESH_HOLD limit.  A row or position whose
+    routing the reference finds at a near tie (a layer's k-th and (k+1)-th
+    router logits within the dtype's tie) is counted, not held: from the
+    step of the tie on for a row's logits, at that position for the cache
+    of the layers after it."""
+    import torch
+
+    from repro_torch.models import Model, moe
+
+    B, S = toks.shape
+    k = cfg.moe.top_k
+    limit, near, most = MESH_HOLD[tag]  # near: in standard deviations of the layer's router logits
+    margins = []
+    router = moe._router
+
+    def recording(c, wr, xt, *a, **kw):
+        logits = xt.float() @ wr.float()
+        top = logits.topk(k + 1, dim=-1).values
+        margins.append(((top[:, -2] - top[:, -1]) / logits.std()).cpu())
+        return router(c, wr, xt, *a, **kw)
+
+    model = Model(cfg)
+    moe._router = recording
+    try:
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(full, {"tokens": toks}, S + MESH_DECODE_STEPS)
+            torch.cuda.synchronize()
+            t_ref = (time.perf_counter() - t0) * 1e3
+            ref = {"prefill": logits}
+            for i in range(MESH_DECODE_STEPS):
+                lg, cache = model.decode_step(full, cache, {"token": dtoks[i]})
+                ref[f"decode{i}"] = lg.clone()
+    finally:
+        moe._router = router
+    L = cfg.num_layers
+    tie = [m < near for m in margins]  # prefill layers [B*S] each, then each decode step's layers [B] each
+    pos_tie = torch.zeros(B, S + MESH_DECODE_STEPS, dtype=torch.bool)  # a layer-0..L-2 tie at the position
+    for l in range(L - 1):
+        pos_tie[:, :S] |= tie[l].reshape(B, S)
+    row_tie = {"prefill": torch.stack([t.reshape(B, S)[:, -1] for t in tie[:L]]).any(0)}
+    so_far = row_tie["prefill"].clone()
+    for i in range(MESH_DECODE_STEPS):
+        step = tie[L + i * L : L + (i + 1) * L]
+        for l in range(L - 1):
+            pos_tie[:, S + i] |= step[l]
+        so_far |= torch.stack(step).any(0)
+        row_tie[f"decode{i}"] = so_far.clone()
+
+    def rows_rel(a, b):
+        """max|a - b| / max|b| of each batch row (dim 0)."""
+        d = (a.double() - b.double()).abs().reshape(a.shape[0], -1).amax(1)
+        return (d / b.double().abs().max()).cpu()
+
+    def cache_rel(a, b):
+        """The same for every (layer, row, position) of a cache leaf."""
+        d = (a.double() - b.double()).abs().flatten(3).amax(3)
+        return (d / b.double().abs().max()).cpu()
+
+    held, skipped, items = {}, {}, {}
+
+    def hold(name, rel, tied):
+        held[name] = float(rel[~tied].max()) if bool((~tied).any()) else 0.0
+        skipped[name], items[name] = int(tied.sum()), tied.numel()
+
+    for name in row_tie:
+        hold(f"1x4 {name}", rows_rel(out[name], ref[name]), row_tie[name])
+    for leaf in ("k", "v"):
+        rel = cache_rel(out[leaf], cache[leaf])
+        hold(f"1x4 cache {leaf} layer 0", rel[0], torch.zeros_like(rel[0], dtype=torch.bool))
+        hold(f"1x4 cache {leaf} layers 1+", rel[1:], pos_tie.expand_as(rel[1:]))
+    for r in range(MESH_RANKS):  # the 2x2 steps took the same tokens from the same prefill cache
+        for i in range(MESH_DECODE_STEPS):
+            got = torch.load(os.path.join(res["dir"], f"{tag}_r{r}_2d_{i}.pt"))
+            rows = slice(*got["rows"])
+            hold(f"2x2 r{r} decode{i}", rows_rel(got["logits"].to(DEVICE), ref[f"decode{i}"][rows]),
+                 row_tie[f"decode{i}"][rows])
+        for leaf in ("k", "v"):
+            rel = cache_rel(got[leaf].to(DEVICE), cache[leaf][:, rows])
+            hold(f"2x2 r{r} cache {leaf}", rel[1:], pos_tie[rows].expand_as(rel[1:]))
+    top = max(held.values())
+    allm = torch.cat(margins[:L]).double()
+    print(f"[mesh] moonshot meshed against one-rank _moe_dense, {tag}, capacity {MESH_CF}: max|d|/max|ref| "
+          + ", ".join(f"{n} {v:.3g}" + (f" ({skipped[n]} at a near tie not held)" if skipped[n] else "")
+                      for n, v in held.items())
+          + f"; limit {limit:g}, near tie under {near:g} (the prefill's router margins over the logits' standard deviation: min {allm.min():.3g}, "
+          f"quantiles 0.01 {allm.quantile(0.01):.3g}, 0.1 {allm.quantile(0.1):.3g}); near ties {sum(skipped.values())} "
+          f"of {sum(items.values())} rows and positions (at most {most:g} of them); one-rank prefill {t_ref:.1f} ms alone on the card while the "
+          f"other ranks wait {where}", flush=True)
+    if not top <= limit:
+        raise AssertionError(f"[mesh] meshed moonshot ({tag}) disagrees with the one-rank path: {top:.3g} > {limit:g}")
+    if sum(skipped.values()) > most * sum(items.values()):
+        raise AssertionError(f"[mesh] too many near ties to hold the meshed path ({tag}): {skipped}")
+    res[f"moonshot_rel_{tag}"] = top
+
+
+def _mesh_compressed_mean(rank: int, card: str, res: dict) -> None:
+    """(b): compressed_mean of a full-width danube gradient leaf over the
+    four ranks, against the plain mean, within the int8 bound."""
+    import torch
+
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim.compression import compressed_mean
+    from repro_torch.sharding import collectives as C
+
+    mesh = make_local_mesh(model_parallel=MESH_RANKS)
+    gen = torch.Generator(device=DEVICE).manual_seed(MESH_SEED + rank)
+    g = torch.randn(MESH_GRAD_LEAF, generator=gen, device=DEVICE) * 1e-3
+    _mesh_sync()
+    t0 = time.perf_counter()
+    got = compressed_mean(g, mesh, "model")
+    torch.cuda.synchronize()
+    t_c = (time.perf_counter() - t0) * 1e3
+    _mesh_sync()
+    t0 = time.perf_counter()
+    plain = C.pmean(g, mesh, "model")
+    torch.cuda.synchronize()
+    t_p = (time.perf_counter() - t0) * 1e3
+    gmax = C.pmax(g.abs().max(), mesh, "model")
+    err = float((got - plain).abs().max())
+    bound = float(gmax) / 127.0 + 1e-6
+    _mesh_say(rank, f"compressed_mean of a {MESH_GRAD_LEAF[0]} x {MESH_GRAD_LEAF[1]} fp32 leaf over 4 ranks: max|d| "
+                    f"{err:.3g} against the plain mean, bound max|g|/127 + 1e-6 = {bound:.3g}; {t_c:.1f} ms (int8 "
+                    f"all-gather), plain pmean {t_p:.1f} ms ({card}; {MESH_RANKS} ranks sharing one card over gloo)")
+    if not err <= bound:
+        raise AssertionError(f"[mesh r{rank}] compressed_mean {err:.3g} > {bound:.3g}")
+    res["cmean"] = {"err": err, "bound": bound, "ms": t_c, "plain_ms": t_p}
+
+
+def _mesh_train(rank: int, card: str, res: dict) -> None:
+    """(c): full-width danube at MESH_TRAIN_LAYERS layers trained on the 2x2
+    mesh in tp mode, each rank holding its blocks of the state, against the
+    one-rank step on rank 0."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.interception import nbytes_of
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import Model, ShapeSpec
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import Partitioner
+    from repro_torch.train.train_step import TrainConfig, build_train_step, init_state
+
+    where = f"({card}; {MESH_RANKS} ranks sharing one card over gloo)"
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=MESH_TRAIN_LAYERS)
+    mesh = make_local_mesh(model_parallel=2)
+    part = Partitioner(mesh, mode="tp")
+    B, S = MESH_TRAIN_SHAPE
+    shape = ShapeSpec("mesh", "train", S, B)
+    tcfg = TrainConfig(peak_lr=TRAIN_LR, warmup=2, total_steps=max(MESH_TRAIN_STEPS, 10))
+    gen = torch.Generator().manual_seed(MESH_SEED)
+    batches = [{k: torch.randint(0, cfg.vocab_size, (B, S), generator=gen, dtype=torch.int32).to(DEVICE)
+                for k in ("tokens", "labels")} for _ in range(MESH_TRAIN_STEPS)]
+
+    def run(model, p):
+        state = init_state(model, tcfg, torch.Generator(device=DEVICE).manual_seed(MESH_SEED), p)
+        step = build_train_step(model, shape, tcfg, DEVICE, p)
+        losses, gnorms, ms = [], [], []
+        for b in batches:
+            if p is not None:
+                _mesh_sync()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return state, step, losses, gnorms, ms
+
+    state, step, losses, gnorms, ms = run(Model(cfg, mesh), part)
+    meta = Model(cfg).shapes()
+    whole = nbytes_of({"params": meta, "opt": adamw_init(meta, tcfg.adamw)})
+    if not all(map(math.isfinite, losses + gnorms)):
+        raise AssertionError(f"[mesh r{rank}] non-finite losses {losses} or grad norms {gnorms}")
+    _mesh_say(rank, f"danube at {MESH_TRAIN_LAYERS} of 24 layers, full width, mesh data=2xmodel=2 (tp), "
+                    f"{B} x {S} tokens a step: losses {', '.join(f'{x:.6f}' for x in losses)}; grad norms "
+                    f"{', '.join(f'{x:.6f}' for x in gnorms)}; steps "
+                    f"{', '.join(f'{t:.1f}' for t in ms)} ms {where}; state bytes on this rank {step.bytes_accessed:,} "
+                    f"of {whole:,} ({step.bytes_accessed / whole:.4f})")
+    if not step.bytes_accessed < whole:
+        raise AssertionError(f"[mesh r{rank}] this rank holds {step.bytes_accessed} bytes of a {whole}-byte state")
+    res["train"] = {"losses": losses, "grad_norms": gnorms, "ms": ms, "bytes": step.bytes_accessed, "whole": whole}
+    del state
+    torch.cuda.empty_cache()
+    _mesh_sync()
+    if rank == 0:
+        _, _, ref, ref_gn, ref_ms = run(Model(cfg), None)
+        d = max(abs(a - b) for a, b in zip(losses, ref))
+        dg = max(abs(a - b) / b for a, b in zip(gnorms, ref_gn))
+        print(f"[mesh] danube 2x2 against the one-rank step: losses {', '.join(f'{x:.6f}' for x in ref)}, max|d| "
+              f"{d:.3g}, limit {MESH_LOSS_LIMIT:g}; grad norms {', '.join(f'{x:.6f}' for x in ref_gn)}, max|d|/ref "
+              f"{dg:.3g}, limit {MESH_GNORM_REL:g}; one-rank steps {', '.join(f'{t:.1f}' for t in ref_ms)} ms "
+              f"alone on the card {where}", flush=True)
+        if not d <= MESH_LOSS_LIMIT:
+            raise AssertionError(f"[mesh] the 2x2 danube step's losses differ from the one-rank step's by {d:.3g}")
+        if not dg <= MESH_GNORM_REL:
+            raise AssertionError(f"[mesh] the 2x2 danube step's grad norms differ from the one-rank step's by "
+                                 f"{dg:.3g} of them")
+        res["train"]["ref"], res["train"]["ref_grad_norms"] = ref, ref_gn
+    _mesh_sync()
+
+
+def mesh_rank(argv) -> int:
+    """One rank of [mesh] (``chip_smoke.py --mesh-rank RANK STORE DIR CARD``):
+    joins the gloo group over the FileStore, runs (a)-(c), writes its
+    readings to DIR/rank<RANK>.json."""
+    import torch
+    import torch.distributed as dist
+
+    rank, store, out_dir, card = int(argv[0]), argv[1], argv[2], argv[3]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=MESH_RANKS)
+    res = {"rank": rank, "dir": out_dir}
+    _mesh_moonshot(rank, card, res)
+    _mesh_compressed_mean(rank, card, res)
+    _mesh_train(rank, card, res)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_phase() -> int:
+    """[mesh]: MESH_RANKS processes on the one card, a gloo group over a
+    FileStore in a temporary directory; every rank's exit code checked and
+    the phase bounded by MESH_TIMEOUT_S.  Returns the meshed prefills'
+    flash_attention launches summed over the ranks."""
+    release("before [mesh]")
+    work = tempfile.mkdtemp(prefix="thapi_mesh_")
+    try:
+        card = card_line()
+        logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(MESH_RANKS)]
+        # the host's cores shared out: each rank's host threads stage and sum
+        # the gloo collectives' tensors
+        env = dict(os.environ, OMP_NUM_THREADS=str(max(1, (os.cpu_count() or MESH_RANKS) // MESH_RANKS)))
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+                                   os.path.join(work, "store"), work, card], stdout=logs[r], stderr=subprocess.STDOUT,
+                                  env=env)
+                 for r in range(MESH_RANKS)]
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        hung = False
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                hung = True
+                break
+        if hung:
+            for p in procs:
+                p.kill()
+            for p in procs:
+                p.wait()
+        for f in logs:
+            f.close()
+        for r in range(MESH_RANKS):
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                for line in f.read().splitlines():
+                    print(line if line.startswith("[mesh") else f"[mesh r{r}] {line}")
+        codes = [p.returncode for p in procs]
+        if hung or any(codes):
+            raise AssertionError(f"[mesh] ranks' exit codes {codes}" + (f", past {MESH_TIMEOUT_S} s" if hung else ""))
+        res = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+        n = sum(x["flash_launches"] for x in res)
+        print(f"[mesh] flash_attention launches {n} = {MESH_LAYERS} layers x 4 meshed prefills x {MESH_RANKS} ranks "
+              f"(none in decode); danube state bytes per rank {[x['train']['bytes'] for x in res]} of "
+              f"{res[0]['train']['whole']}")
+        return n
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def check_full_mode_fence() -> None:
     """In ``full`` mode a step on the card is fenced by polling its CUDA
     event: ``poll_ready`` pairs instead of ``block_until_ready``."""
@@ -3698,6 +4246,8 @@ def main(argv=()) -> int:
     if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
         print("chip_smoke: run from the root of a checkout (src/repro_torch missing)", file=sys.stderr)
         return 1
+    if argv[:1] == ["--mesh-rank"]:
+        return mesh_rank(argv[1:])
     print(card_line())
     if argv[:1] == ["--compare"]:
         return compare_only(argv[1] if len(argv) > 1 else os.path.join(ROOT, "src"))
@@ -3749,6 +4299,7 @@ def main(argv=()) -> int:
     timed("remediation", remediation_phase, train_losses)
     for name, n in timed("dryrun", dryrun_phase).items():
         launches[name] += n
+    launches["flash_attention"] += timed("mesh", mesh_phase)
     print(f"[time] the phases: {'; '.join(f'{k} {v:.1f} s' for k, v in seconds.items())}; all "
           f"{time.perf_counter() - t_start:.1f} s")
     for k in kernels:

@@ -1,9 +1,22 @@
-"""Elastic re-mesh plans over logical rank ids.
+"""Meshes over ``torch.distributed`` ranks, and elastic re-mesh plans.
+
+A :class:`Mesh` names its axes and their sizes in order, as the JAX mesh's
+``shape`` does.  Three kinds:
+
+* a logical mesh (:func:`make_production_mesh`): sizes only, for the
+  partitioner and the analytics; asking it for a group or an axis index
+  raises;
+* a local mesh over the live process group (:func:`make_local_mesh`): it
+  wraps a ``torch.distributed.device_mesh.DeviceMesh`` and gives each named
+  axis's process group and this rank's index on it; ranks are laid out row
+  major over the axes;
+* the one-rank mesh :func:`make_local_mesh` builds when no process group
+  is up: every axis has size 1, so no collective runs.
 
 When the remediation ladder evicts a sick rank, the survivors get a new
 dense rank assignment and the evicted rank's unfinished work is dealt to
 them; when a replacement comes back, :meth:`RemeshPlan.splice_rank` claws
-exactly the un-done share back.  Pure functions: nothing here touches a
+exactly the un-done share back.  Pure functions: nothing there touches a
 device or a process group.
 """
 
@@ -12,7 +25,87 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Iterable, Optional, Tuple
 
-__all__ = ["RemeshPlan", "plan_eviction"]
+__all__ = ["Mesh", "RemeshPlan", "describe", "make_local_mesh", "make_production_mesh", "plan_eviction"]
+
+
+class Mesh:
+    """Axis sizes by name, in order (``shape``), optionally backed by a
+    ``DeviceMesh`` over the live process group."""
+
+    def __init__(self, shape: Dict[str, int], device_mesh=None, logical: bool = False):
+        self.shape: Dict[str, int] = dict(shape)
+        self.axis_names: Tuple[str, ...] = tuple(self.shape)
+        self.device_mesh = device_mesh
+        self.logical = logical
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for v in self.shape.values():
+            n *= v
+        return n
+
+    def device_mesh_or_raise(self):
+        if self.device_mesh is None:
+            raise RuntimeError(f"mesh {describe(self)} has no process group behind it")
+        return self.device_mesh
+
+    def _check(self, axis: str) -> None:
+        if self.logical:
+            raise RuntimeError(f"mesh {describe(self)} is logical (sizes only): it has no axis {axis!r} to run on")
+        if axis not in self.shape:
+            raise KeyError(f"mesh {describe(self)} has no axis {axis!r}")
+
+    def group(self, axis: str):
+        """The process group of this rank's line along ``axis``."""
+        self._check(axis)
+        return self.device_mesh_or_raise().get_group(axis)
+
+    def index(self, axis: str) -> int:
+        """This rank's index along ``axis`` (``lax.axis_index``)."""
+        self._check(axis)
+        if self.device_mesh is None:
+            return 0
+        return self.device_mesh.get_local_rank(axis)
+
+    def __repr__(self) -> str:
+        kind = "logical" if self.logical else ("device" if self.device_mesh is not None else "one-rank")
+        return f"Mesh({describe(self)}, {kind})"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """16×16 chips per pod; 2 pods for the multi-pod dry run.  Sizes only."""
+    if multi_pod:
+        return Mesh({"pod": 2, "data": 16, "model": 16}, logical=True)
+    return Mesh({"data": 16, "model": 16}, logical=True)
+
+
+def make_local_mesh(model_parallel: Optional[int] = None) -> Mesh:
+    """``(world // mp, mp)`` over ``("data", "model")`` across the ranks of
+    the live process group (one rank when none is up); raises when the
+    world does not divide by ``model_parallel``, as the JAX package does."""
+    import torch
+    import torch.distributed as dist
+
+    live = dist.is_available() and dist.is_initialized()
+    n = dist.get_world_size() if live else 1
+    mp = model_parallel or 1
+    if n % mp:
+        raise ValueError(f"{n} devices not divisible by model_parallel={mp}")
+    shape = {"data": n // mp, "model": mp}
+    if not live:
+        return Mesh(shape)
+    from torch.distributed.device_mesh import DeviceMesh
+
+    # the DeviceMesh's device type names where its groups' tensors live; a
+    # gloo group carries every tensor through host memory
+    kind = "cpu" if dist.get_backend() == "gloo" else "cuda"
+    dm = DeviceMesh(kind, torch.arange(n).reshape(n // mp, mp), mesh_dim_names=("data", "model"))
+    return Mesh(shape, dm)
+
+
+def describe(mesh: Mesh) -> str:
+    return "x".join(f"{k}={v}" for k, v in mesh.shape.items())
 
 
 # -- elastic re-mesh (remediation rung 3) -----------------------------------------

@@ -11,7 +11,11 @@ launcher's ``--smoke``, accepted and implied); ``--full`` trains the
 published width on one card, weights drawn from ``--seed``.  The dense,
 VLM, MoE and audio families train (whisper over the pipeline's random
 frames); the SSM and hybrid families exit non-zero, naming the ROADMAP
-entry for them.
+entry for them.  As the JAX launcher does, it trains on the local mesh,
+``(world, 1)`` over ``("data", "model")`` (the ranks of a live
+``torch.distributed`` process group, else one rank), through a
+``Partitioner`` in the config's mode; every rank takes the same batches
+and keeps its rows.
 """
 
 from __future__ import annotations
@@ -26,7 +30,9 @@ import torch
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core import TraceConfig, Tracer
 from repro_torch.core.plugins.tally import render, tally_trace
+from repro_torch.launch.mesh import describe, make_local_mesh
 from repro_torch.models import Model, ShapeSpec
+from repro_torch.sharding import Partitioner
 from repro_torch.train import TrainConfig, Trainer, TrainerConfig
 
 
@@ -59,7 +65,8 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.smoke()
-    model = Model(cfg)
+    mesh = make_local_mesh()
+    model = Model(cfg, mesh)
     try:
         model.check_trainable()
     except NotImplementedError as e:
@@ -79,6 +86,7 @@ def main(argv=None) -> int:
         ),
         TrainerConfig(steps=args.steps, ckpt_every=max(args.steps // 2, 1), ckpt_dir=args.ckpt_dir),
         rng_seed=args.seed,
+        partitioner=Partitioner(mesh, fsdp=cfg.fsdp),
     )
     tracer = None
     if args.trace != "off":
@@ -92,7 +100,7 @@ def main(argv=None) -> int:
             tracer.stop()
     h = res["history"]
     print(f"{args.arch}: loss {h[0]['loss']:.3f} → {h[-1]['loss']:.3f} in {res['steps_run']} steps "
-          f"on {device} ({cfg.name}, {cfg.dtype})")
+          f"on {device} ({cfg.name}, {cfg.dtype}, mesh {describe(mesh)})")
     if tracer is not None:
         print(render(tally_trace(args.trace_dir), top=8))
     return 0

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.sharding.placement import at_use
 
 from .config import ModelConfig
 from .layers import (
@@ -74,6 +75,7 @@ def specs(cfg: ModelConfig) -> dict:
 
 
 def _enc_block(cfg: ModelConfig, pl: dict, x: torch.Tensor, attention) -> torch.Tensor:
+    pl = at_use(pl)
     q, k, v = qkv(cfg, pl["attn"], apply_norm(cfg, pl["ln1"], x))
     x = x + attn_out(pl["attn"], attention(q, k, v, causal=False))
     return x + apply_mlp(cfg, pl["mlp"], apply_norm(cfg, pl["ln2"], x))
@@ -91,6 +93,7 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor, attention=kops.
 
 
 def _cross_kv(pl: dict, enc_out: torch.Tensor):
+    pl = at_use(pl)
     k = torch.einsum("btd,dhk->bthk", enc_out, pl["xattn"]["wk"])
     v = torch.einsum("btd,dhk->bthk", enc_out, pl["xattn"]["wv"])
     return k, v
@@ -101,6 +104,7 @@ def _dec_block(cfg: ModelConfig, pl: dict, x, xk, xv, self_kv=None, lengths=None
     """One decoder block over the cross K/V ``xk``/``xv``: the whole sequence
     through ``attention`` when ``self_kv`` is None, else one new token whose
     K/V go into the cache rows ``self_kv`` in place.  Returns (x, k, v)."""
+    pl = at_use(pl)
     q, k, v = qkv(cfg, pl["attn"], apply_norm(cfg, pl["ln1"], x))
     if self_kv is None:
         ctx = attention(q, k, v, causal=True)

@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.placement import Placed
+
 from .config import ModelConfig
 from .param import Spec
 
@@ -54,9 +56,13 @@ def norm_spec(cfg: ModelConfig, stacked: Optional[int] = None) -> dict:
 
 
 def layer_slice(tree, l: int):
-    """Layer ``l`` of a dict tree of layer-stacked tensors."""
+    """Layer ``l`` of a dict tree of layer-stacked tensors (of a sharded
+    leaf, layer ``l`` of this rank's block, gathered where the block uses
+    it: ``sharding.at_use``)."""
     if isinstance(tree, torch.Tensor):
         return tree[l]
+    if isinstance(tree, Placed):
+        return tree.layer(l)
     return {k: layer_slice(v, l) for k, v in tree.items()}
 
 
@@ -67,6 +73,8 @@ def layer_slices(tree, n: int) -> list:
     tensor of the whole stack."""
     if isinstance(tree, torch.Tensor):
         return list(tree.unbind(0))
+    if isinstance(tree, Placed):
+        return tree.layers()
     per_key = {k: layer_slices(v, n) for k, v in tree.items()}
     return [{k: v[l] for k, v in per_key.items()} for l in range(n)]
 

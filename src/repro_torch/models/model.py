@@ -1,8 +1,9 @@
 """Model facade over the families: SSM, hybrid, dense, MoE, audio
 (encoder–decoder) and VLM (the dense model with a patch-embedding prefix).
 
-    m = Model(cfg)
-    m.param_specs()            spec tree (shapes/init in one declaration)
+    m = Model(cfg, mesh)
+    m.param_specs()            spec tree (shapes/axes/init in one declaration)
+    m.axes()                   the logical-axes tree (``sharding.Partitioner``)
     m.init(generator)          tensors on the generator's device
     m.shapes()                 the parameters as meta tensors
     m.loss(params, batch)      (loss, metrics), differentiable by autograd
@@ -11,8 +12,12 @@
     m.cache_specs(shape)       serving-state Spec tree for decode shapes
 
 Training covers the dense, VLM, MoE and audio families, whose JAX
-``forward_train`` runs no Pallas kernel (the MoE family on one device, the
-JAX package's mesh-free ``_moe_dense``).  ``logits`` refuses the SSM and
+``forward_train`` runs no Pallas kernel.  On a ``mesh``
+(``launch.mesh.Mesh``) the MoE family routes tokens to expert shards over
+its "model" axis (``moe.moe_ffn``'s expert-parallel paths) and the others
+run as on one device; the parameters may then be ``sharding.Placed``
+blocks, each gathered whole where a block uses it (the MoE experts stay
+blocks).  Batch inputs are this rank's rows.  ``logits`` refuses the SSM and
 hybrid families, whose kernels have no backward, naming the ROADMAP entry
 for each.  The MoE family's loss adds ``aux_loss_weight`` times its
 load-balance term, as the JAX package's does.
@@ -25,7 +30,10 @@ import torch
 from . import encdec, hybrid, moe, ssm, transformer
 from .config import ModelConfig, ShapeSpec
 from .layers import xent_loss
+from repro_torch.sharding.placement import at_use
+
 from .param import Spec
+from .param import axes as spec_axes
 from .param import init as spec_init
 from .param import shapes as spec_shapes
 
@@ -46,9 +54,15 @@ _FAMILY = {
 
 
 class Model:
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
         self.mod = _FAMILY[cfg.family]
+        #: the mesh, for the one family whose functions take it
+        self._mesh_kw = {"mesh": mesh} if cfg.family == "moe" else {}
+        #: the leaves a block takes as this rank's block, not gathered whole
+        #: (the MoE experts, which ``moe_ffn`` reshards to its path's spec)
+        self.keep_local = self.mod.EXPERT_LEAVES if cfg.family == "moe" else ()
 
     # -- parameters ------------------------------------------------------------
     def param_specs(self) -> dict:
@@ -60,6 +74,9 @@ class Model:
 
     def shapes(self) -> dict:
         return spec_shapes(self.param_specs(), self.cfg.dtype)
+
+    def axes(self) -> dict:
+        return spec_axes(self.param_specs())
 
     # -- training ---------------------------------------------------------------
     def check_trainable(self) -> None:
@@ -75,8 +92,9 @@ class Model:
         """(logits, auxiliary loss) over the whole sequence: the MoE family's
         load-balance term, an fp32 zero for the others."""
         self.check_trainable()
+        params = at_use(params, top=True)
         if self.cfg.family == "moe":
-            return self.mod.forward_train(self.cfg, params, batch)
+            return self.mod.forward_train(self.cfg, params, batch, **self._mesh_kw)
         out = self.mod.forward_train(self.cfg, params, batch)
         return out, torch.zeros((), dtype=torch.float32, device=out.device)
 
@@ -95,10 +113,10 @@ class Model:
 
     # -- serving -----------------------------------------------------------------
     def prefill(self, params: dict, batch: dict, cache_len: int):
-        return self.mod.prefill(self.cfg, params, batch, cache_len)
+        return self.mod.prefill(self.cfg, at_use(params, top=True), batch, cache_len, **self._mesh_kw)
 
     def decode_step(self, params: dict, cache: dict, batch: dict):
-        return self.mod.decode_step(self.cfg, params, cache, batch)
+        return self.mod.decode_step(self.cfg, at_use(params, top=True), cache, batch, **self._mesh_kw)
 
     # -- input/cache declarations --------------------------------------------------
     def batch_specs(self, shape: ShapeSpec) -> dict:

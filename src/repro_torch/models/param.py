@@ -1,4 +1,4 @@
-"""Parameter spec trees: one declaration drives init and shapes.
+"""Parameter spec trees: one declaration drives init, shapes and sharding.
 
 A model declares its parameters as a tree of dicts and lists with
 :class:`Spec` leaves;
@@ -86,6 +86,16 @@ def zeros(tree, dtype: str, device):
     if isinstance(tree, list):
         return [zeros(v, dtype, device) for v in tree]
     return {k: zeros(v, dtype, device) for k, v in tree.items()}
+
+
+def axes(tree):
+    """The tree's logical-axes tuples (what ``sharding.Partitioner`` maps
+    to specs)."""
+    if isinstance(tree, Spec):
+        return tree.axes
+    if isinstance(tree, list):
+        return [axes(v) for v in tree]
+    return {k: axes(v) for k, v in tree.items()}
 
 
 def shapes(tree, dtype: str):

@@ -35,6 +35,7 @@ import torch
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.kernels import ops as kops
+from repro_torch.sharding.placement import at_use
 
 from .config import ModelConfig
 from .layers import (
@@ -125,6 +126,7 @@ def block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor, f
     """One training block: returns (x, aux).  ``ffn(cfg, p, h) -> (y, aux)``
     is its feed-forward: the SwiGLU MLP (aux None), or the MoE family's
     expert layer with its load-balance loss."""
+    p = at_use(p)
     h = apply_norm(cfg, p["ln1"], x)
     q, k, v = qkv(cfg, p["attn"], h, positions)
     ctx = attend_cfg(cfg, q, k, v, causal=True, window=cfg.sliding_window)
@@ -170,6 +172,7 @@ def prefill_layer(cfg: ModelConfig, pl: dict, x: torch.Tensor, positions: torch.
     """One block over the prompt: returns (x, k, v) with the post-RoPE keys
     and values.  ``mlp(cfg, pl, h)`` is the block's feed-forward (the MoE
     family passes its expert layer)."""
+    pl = at_use(pl)
     h = apply_norm(cfg, pl["ln1"], x)
     q, k, v = qkv(cfg, pl["attn"], h, positions)
     ctx = kops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
@@ -207,6 +210,7 @@ def decode_layer(cfg: ModelConfig, pl: dict, x: torch.Tensor, ck: torch.Tensor, 
     """One block for one new token at position ``lengths``: writes its K/V
     into the layer's cache rows ``ck``/``cv`` in place and attends over the
     first ``kv_valid`` of them."""
+    pl = at_use(pl)
     h = apply_norm(cfg, pl["ln1"], x)
     q, k, v = qkv(cfg, pl["attn"], h, lengths[:, None])
     cache_update(ck, cv, k, v, lengths, cfg.sliding_window)

@@ -5,7 +5,9 @@ The JAX package's ``optim/adamw.py``: every update runs in fp32 and is
 cast back to the parameter's and the state's dtypes.  The update writes
 the new parameters and moments into the tensors it was given, the
 counterpart of the JAX train step donating its state: it holds one leaf's
-fp32 temporaries at a time beside the state.
+fp32 temporaries at a time beside the state.  On a mesh each rank updates
+its blocks of the leaves, and the gradient norm sums every block of a
+sharded leaf (``global_norm`` with the leaves' specs).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.models.param import DTYPES
+from repro_torch.sharding import collectives as C
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,10 +32,20 @@ class AdamWConfig:
     state_dtype: str = "float32"
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, mesh=None, specs=None) -> torch.Tensor:
     """sqrt of the sum over leaves (in leaf order) of each leaf's fp32 sum of
-    squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree.leaves(grads)))
+    squares.  With ``specs`` (a tree of the leaves' specs on ``mesh``) the
+    leaves are this rank's blocks: the sums of leaves sharded over the
+    same axes are all-reduced over those axes, so every block counts once."""
+    if specs is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree.leaves(grads)))
+    from repro_torch.sharding.partition import spec_items
+
+    by_axes: dict = {}
+    for g, (_, spec) in zip(tree.leaves(grads), spec_items(specs), strict=True):
+        key = spec.mesh_axes()
+        by_axes[key] = by_axes.get(key, 0.0) + torch.sum(torch.square(g.float()))
+    return torch.sqrt(sum(C.psum(v, mesh, axes) for axes, v in by_axes.items()))
 
 
 def adamw_init(params, cfg: AdamWConfig) -> dict:
@@ -48,10 +61,11 @@ def adamw_init(params, cfg: AdamWConfig) -> dict:
     }
 
 
-def adamw_update(grads, state: dict, params, lr, cfg: AdamWConfig) -> Tuple[dict, dict, torch.Tensor]:
+def adamw_update(grads, state: dict, params, lr, cfg: AdamWConfig, mesh=None, specs=None) -> Tuple[dict, dict, torch.Tensor]:
     """Writes the new values into ``params`` and ``state`` and returns
-    (params, state, pre-clip global gradient norm)."""
-    gnorm = global_norm(grads)
+    (params, state, pre-clip global gradient norm); ``mesh`` and ``specs``
+    as ``global_norm`` takes them."""
+    gnorm = global_norm(grads, mesh, specs)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-12), max=1.0)
     count = state["count"] + 1
     c1 = 1.0 - cfg.b1 ** count.float()

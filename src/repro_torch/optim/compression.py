@@ -6,8 +6,11 @@
     flat indices; ``topk_densify`` scatters them back.
 
 The train step's ``grad_compression`` runs the int8 quantise–dequantise on
-every gradient, as the JAX package's does.  The JAX ``compressed_mean``
-reduces over a mesh axis and comes with the sharded trainer.
+every gradient, as the JAX package's does.  ``compressed_mean`` is the
+int8 mean over a mesh axis: each rank quantises its tensor, the int8
+values and fp32 scales are all-gathered (about a byte an element on the
+wire where ``pmean`` moves the dtype's width), and each rank dequantises
+and takes the mean in fp32.
 """
 
 from __future__ import annotations
@@ -16,13 +19,20 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.sharding import collectives as C
 
-def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+
+def quantize_int8(x: torch.Tensor, mesh=None, row_axes=()) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [...] -> (int8 values of x's shape, fp32 scales [..., 1]); a 1-D x
-    is one row with a scale of shape (1,)."""
+    is one row with a scale of shape (1,).  When x is a block of a tensor
+    whose rows are split over the mesh axes ``row_axes``, each row's absmax
+    is the maximum over those ranks: the scale of the whole row."""
     xf = x.float()
     flat = xf.reshape(-1, xf.shape[-1]) if xf.ndim > 1 else xf.reshape(1, -1)
-    scale = torch.amax(torch.abs(flat), dim=-1, keepdim=True) / 127.0
+    scale = torch.amax(torch.abs(flat), dim=-1, keepdim=True)
+    if row_axes:
+        scale = C.pmax(scale, mesh, row_axes)
+    scale = scale / 127.0
     scale = torch.where(scale == 0, 1.0, scale)
     q = torch.clamp(torch.round(flat / scale), -127, 127).to(torch.int8)
     if x.ndim > 1:
@@ -43,3 +53,12 @@ def topk_sparsify(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def topk_densify(vals: torch.Tensor, idx: torch.Tensor, size: int) -> torch.Tensor:
     return torch.zeros(size, dtype=torch.float32, device=vals.device).index_put((idx,), vals)
+
+
+def compressed_mean(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The int8-compressed mean of ``x`` over the ranks of ``axis``, in
+    ``x``'s dtype (``lax.pmean`` with an int8 wire)."""
+    q, scale = quantize_int8(x)
+    qg = C.all_gather(q[None], mesh, axis)
+    sg = C.all_gather(scale[None], mesh, axis)
+    return torch.mean(qg.float() * sg, dim=0).to(x.dtype)

@@ -1,6 +1,7 @@
 """Fault-tolerant training loop, fully THAPI-instrumented (the JAX
-package's ``train/trainer.py`` on one device: it takes a ``device`` where
-the JAX trainer takes a ``Partitioner``).
+package's ``train/trainer.py``: it takes a ``device``, and optionally the
+``Partitioner`` the JAX trainer takes, whose mesh's ranks then each hold
+their blocks of the state and take their rows of every batch).
 
 This is the paper's subject *and* its substrate: every phase of the loop is
 traced through the interception layer (train_step / data_next / optimizer
@@ -20,7 +21,9 @@ Fault tolerance (1000-node posture, exercised in tests):
     ``trainer.straggler_callback`` (on a real cluster this triggers rank
     replacement — here it feeds the trace and the run report);
   * the state lives on one device and is updated in place; a restore
-    copies the checkpoint into it.
+    copies the checkpoint into it.  A state sharded over more than one
+    rank is not checkpointed yet: its resharding on restore is not ported
+    (ROADMAP.md §1, item 5b).
 """
 
 from __future__ import annotations
@@ -135,6 +138,7 @@ class Trainer:
         tcfg: TrainConfig,
         cfg: TrainerConfig,
         rng_seed: int = 0,
+        partitioner=None,
     ):
         self.model = model
         self.shape = shape
@@ -142,8 +146,11 @@ class Trainer:
         self.tcfg = tcfg
         self.cfg = cfg
         model.check_trainable()
-        self.step_fn = build_train_step(model, shape, tcfg, self.device)
-        self.state = init_state(model, tcfg, torch.Generator(device=self.device).manual_seed(rng_seed))
+        if partitioner is not None and partitioner.mesh.size > 1 and cfg.ckpt_dir:
+            raise NotImplementedError("checkpoints of a state sharded over ranks are not ported "
+                                      "(resharding on restore, ROADMAP.md section 1 item 5b)")
+        self.step_fn = build_train_step(model, shape, tcfg, self.device, partitioner)
+        self.state = init_state(model, tcfg, torch.Generator(device=self.device).manual_seed(rng_seed), partitioner)
         self.pipe = SyntheticPipeline(model, shape, cfg.data, dp_rank=0, dp_size=1)
         self.ckpt = Checkpointer(cfg.ckpt_dir) if cfg.ckpt_dir else None
         self.step = 0
