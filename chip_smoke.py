@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # from the root of a checkout, one CUDA card
     python3 chip_smoke.py --compare [SRC]  # this slice's readings, with the package under SRC
     python3 chip_smoke.py --mesh-rank R STORE DIR CARD  # one rank of [mesh], as the phase spawns it
+    python3 chip_smoke.py --mesh-ckpt-rank R STORE DIR CARD  # one rank of [mesh-ckpt]
 
 Phases, each fatal on failure:
   1. build every CUDA source under src/repro_torch/csrc/ (one nvcc each,
@@ -137,7 +138,7 @@ Phases, each fatal on failure:
      ``python -m repro_torch.examples.distributed_train`` on the card in
      its own process for each mode: --chaos with a slowdown (ladder to
      eviction), --chaos --chaos-replace with a kill (a replacement, the
-     zombie fenced), --live with a slow rank, and the default mode (200
+     zombie fenced), --live with a slow rank, and the default mode (100
      steps, the loss falls, validation clean), each with its wall time;
  11. [train-moe-audio], run between 9 and 10: two-layer full-width fp32
      train steps on the card against the CPU as in [train], for
@@ -170,7 +171,7 @@ Phases, each fatal on failure:
      then the danube (24 flash launches) and Mamba2-1.3B (48 SSD launches)
      prefills of 4096 tokens through the kernels, held the same way against
      the profiled busy time, their launches added to the kernels line;
- 13. [mesh], last: four processes on the one card (NCCL refuses two ranks
+ 13. [mesh]: four processes on the one card (NCCL refuses two ranks
      on one device), a gloo group over a FileStore in a temporary
      directory, each rank's exit code checked and the phase bounded by
      MESH_TIMEOUT_S.  (a) moonshot-v1-16b-a3b at full width and 2 of its 48
@@ -193,6 +194,25 @@ Phases, each fatal on failure:
      one-rank step.
      Every time there names the card, its power limit and "4 ranks sharing
      one card over gloo".
+ 14. [mesh-ckpt], last: the same four ranks on the card (``--mesh-ckpt-rank``)
+     train full-width h2o-danube-1.8b at 2 of its 24 layers through
+     ``Trainer`` on the 2x2 mesh in tp mode, 4 x 1024 tokens a step,
+     checkpoints (whole leaves gathered into rank 0, written by it alone) in
+     a shared directory.  (a) a checkpoint every 2 steps (keep 2), the 3rd
+     step call failing on every rank and rank 1 failing once more after its
+     3rd step returned: every rank restores step 2 twice, the replayed
+     losses equal the first attempts'; (b) in the same run, a drain asked
+     on rank 2 alone, from a second thread, after its 4th step: every rank
+     drains at step 3; (c)
+     the drained 2x2 trainer continued in place, and that checkpoint
+     restored onto 1x4 and 4x1, each rank's blocks equal to local_block of
+     the files bit for bit, 2 more steps each, the 1x4 and 4x1 losses
+     within MESH_LOSS_LIMIT of 2x2's; (d) the group gone,
+     the checkpoint restored on one rank and served (flash 2 x the
+     prefills); (e) the example's default mode over 2 torchrun ranks on the
+     card, 10 steps.  It prints the saves' gather and write times and bytes,
+     each restore's time per mesh, each rank's state bytes, the losses, the
+     drain step and the example's wall time.
      Every phase prints its seconds, and the run ends with all of them.
 The reduced-depth fp32 models of phases 2-4, 8, 9 and 11 are held to the CPU by
 ``_rel`` (max|card - cpu| / max|cpu|) under ``CPU_REL_LIMIT``.
@@ -3160,6 +3180,9 @@ REMEDIATION_LOSS_REL_LIMIT = 0.0
 EXAMPLE = "repro_torch.examples.distributed_train"
 #: each example run's own time limit
 EXAMPLE_TIMEOUT_S = 300
+#: the one-rank default run's steps (200 until slice 15, which also runs
+#: the default mode over two ranks in [mesh-ckpt] and needed the time)
+EXAMPLE_DEFAULT_STEPS = 100
 #: (label, arguments, lines its standard output must hold)
 EXAMPLE_RUNS = [
     ("chaos slowdown", ["--chaos", "--chaos-ranks", "3", "--chaos-steps", "25", "--chaos-seed", "0",
@@ -3174,7 +3197,7 @@ EXAMPLE_RUNS = [
     ("live", ["--live", "--live-steps", "6", "--live-slow-rank", "1"],
      ["live composite matches offline combine", "per-rank sums equal the merged composite", "OK: straggler",
       "rank1 flagged"]),
-    ("default", ["--steps", "200"], ["validation: clean"]),
+    ("default", ["--steps", str(EXAMPLE_DEFAULT_STEPS)], ["validation: clean"]),
 ]
 
 
@@ -3338,18 +3361,20 @@ def drain_and_replace(train_losses: dict) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
-def run_example(label: str, args: list, want: list) -> str:
+def run_example(label: str, args: list, want: list, ranks: int = 0) -> str:
     """``python -m repro_torch.examples.distributed_train ARGS`` on the card
-    in its own process group, with a temporary directory of its own that is
-    removed after; fails unless it exits 0 within EXAMPLE_TIMEOUT_S with
-    every line of ``want`` in its standard output.  Returns that output."""
+    in its own process group (with ``ranks``, under ``torchrun`` over that
+    many ranks), with a temporary directory of its own that is removed
+    after; fails unless it exits 0 within EXAMPLE_TIMEOUT_S with every line
+    of ``want`` in its standard output.  Returns that output."""
     import signal
 
     tmp = tempfile.mkdtemp(prefix="thapi_example_")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), TMPDIR=tmp)
+    torchrun = ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(ranks)] if ranks else []
     t0 = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, "-m", EXAMPLE, *args], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True, env=env, cwd=ROOT, start_new_session=True)
+    proc = subprocess.Popen([sys.executable, *torchrun, "-m", EXAMPLE, *args], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT, start_new_session=True)
     try:
         out, err = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
     except subprocess.TimeoutExpired:
@@ -3378,8 +3403,9 @@ def run_examples() -> None:
         out = run_example(label, args, want)
         if label == "default":
             m = re.search(r"^loss: ([0-9.]+) → ([0-9.]+) over (\d+) steps", out, re.M)
-            if m is None or not float(m.group(2)) < float(m.group(1)) or int(m.group(3)) != 200:
-                raise AssertionError(f"[example] default: the loss did not fall over 200 steps ({m and m.group(0)})")
+            if m is None or not float(m.group(2)) < float(m.group(1)) or int(m.group(3)) != EXAMPLE_DEFAULT_STEPS:
+                raise AssertionError(f"[example] default: the loss did not fall over {EXAMPLE_DEFAULT_STEPS} steps "
+                                     f"({m and m.group(0)})")
 
 
 def remediation_phase(train_losses: dict) -> None:
@@ -3396,7 +3422,7 @@ def remediation_phase(train_losses: dict) -> None:
 # ---------------------------------------------------------------------------
 
 #: the dry run's worker processes (the card machine has 8 cores)
-DRYRUN_JOBS = 4
+DRYRUN_JOBS = 8  # the card's host has 8 cores (4 until slice 15)
 DRYRUN_TIMEOUT_S = 300
 #: the dry run's peak must lie within this share of the card's
 PEAK_REL_LIMIT = 0.10
@@ -4081,6 +4107,47 @@ def mesh_rank(argv) -> int:
     return 0
 
 
+def _run_ranks(tag: str, flag: str, work: str, card: str, timeout_s: float) -> list:
+    """``python3 chip_smoke.py FLAG R STORE WORK CARD`` for each of the
+    MESH_RANKS ranks at once, a gloo group over a FileStore in ``work``;
+    their output printed, every exit code checked, all bounded by
+    ``timeout_s``.  Returns each rank's ``WORK/rank<R>.json``."""
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(MESH_RANKS)]
+    # the host's cores shared out: each rank's host threads stage and sum
+    # the gloo collectives' tensors
+    env = dict(os.environ, OMP_NUM_THREADS=str(max(1, (os.cpu_count() or MESH_RANKS) // MESH_RANKS)))
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, str(r), os.path.join(work, "store"),
+                               work, card], stdout=logs[r], stderr=subprocess.STDOUT, env=env)
+             for r in range(MESH_RANKS)]
+    deadline = time.monotonic() + timeout_s
+    hung = False
+    for p in procs:
+        try:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            hung = True
+            break
+    if hung:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.wait()
+    for f in logs:
+        f.close()
+    for r in range(MESH_RANKS):
+        with open(os.path.join(work, f"rank{r}.log")) as f:
+            for line in f.read().splitlines():
+                print(line if line.startswith(f"[{tag}") else f"[{tag} r{r}] {line}")
+    codes = [p.returncode for p in procs]
+    if hung or any(codes):
+        raise AssertionError(f"[{tag}] ranks' exit codes {codes}" + (f", past {timeout_s} s" if hung else ""))
+    res = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    return res
+
+
 def mesh_phase() -> int:
     """[mesh]: MESH_RANKS processes on the one card, a gloo group over a
     FileStore in a temporary directory; every rank's exit code checked and
@@ -4089,46 +4156,314 @@ def mesh_phase() -> int:
     release("before [mesh]")
     work = tempfile.mkdtemp(prefix="thapi_mesh_")
     try:
-        card = card_line()
-        logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(MESH_RANKS)]
-        # the host's cores shared out: each rank's host threads stage and sum
-        # the gloo collectives' tensors
-        env = dict(os.environ, OMP_NUM_THREADS=str(max(1, (os.cpu_count() or MESH_RANKS) // MESH_RANKS)))
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
-                                   os.path.join(work, "store"), work, card], stdout=logs[r], stderr=subprocess.STDOUT,
-                                  env=env)
-                 for r in range(MESH_RANKS)]
-        deadline = time.monotonic() + MESH_TIMEOUT_S
-        hung = False
-        for p in procs:
-            try:
-                p.wait(timeout=max(1.0, deadline - time.monotonic()))
-            except subprocess.TimeoutExpired:
-                hung = True
-                break
-        if hung:
-            for p in procs:
-                p.kill()
-            for p in procs:
-                p.wait()
-        for f in logs:
-            f.close()
-        for r in range(MESH_RANKS):
-            with open(os.path.join(work, f"rank{r}.log")) as f:
-                for line in f.read().splitlines():
-                    print(line if line.startswith("[mesh") else f"[mesh r{r}] {line}")
-        codes = [p.returncode for p in procs]
-        if hung or any(codes):
-            raise AssertionError(f"[mesh] ranks' exit codes {codes}" + (f", past {MESH_TIMEOUT_S} s" if hung else ""))
-        res = []
-        for r in range(MESH_RANKS):
-            with open(os.path.join(work, f"rank{r}.json")) as f:
-                res.append(json.load(f))
+        res = _run_ranks("mesh", "--mesh-rank", work, card_line(), MESH_TIMEOUT_S)
         n = sum(x["flash_launches"] for x in res)
         print(f"[mesh] flash_attention launches {n} = {MESH_LAYERS} layers x 4 meshed prefills x {MESH_RANKS} ranks "
               f"(none in decode); danube state bytes per rank {[x['train']['bytes'] for x in res]} of "
               f"{res[0]['train']['whole']}")
         return n
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# [mesh-ckpt]: checkpointed, elastic training over four ranks sharing the card
+# ---------------------------------------------------------------------------
+
+#: each rank's own time limit, and the phase's ranks' (they run at once)
+MESH_CKPT_TIMEOUT_S = 420
+#: (a) and (b), one 2x2 run: its checkpoint period and retention (the step
+#: budget is never reached: the run drains).  Cut from 8 steps and a
+#: checkpoint every 4 to keep the phase under 200 s: a step takes ~6-7 s
+#: with a checkpoint's write beside it on the host
+MESH_CKPT_EVERY, MESH_CKPT_KEEP = 2, 2
+#: the step call that fails on every rank, before its collectives
+MESH_CKPT_FAIL_AT = 3
+#: rank 1 alone fails after this many of its steps have returned (1, 2 and
+#: the first attempt at 3)
+MESH_CKPT_FAIL_AFTER = 3
+#: rank 2 alone asks for a drain (from a second thread) after this many of
+#: its steps have returned (1, 2, 3 and the replayed 3): every rank drains
+#: at step 3
+MESH_CKPT_DRAIN_AFTER = 4
+MESH_CKPT_DRAIN_AT = 3
+#: (c): the steps each trainer restored from the drain checkpoint takes
+MESH_CKPT_MORE = 2
+#: every trainer's schedule length, so that a restored run keeps the lr
+MESH_CKPT_TOTAL = 20
+#: the meshes of (c): name -> model_parallel (2x2 continues in place, the
+#: others restore the drain checkpoint)
+MESH_CKPT_MESHES = (("2x2", 2), ("1x4", 4), ("4x1", 1))
+#: (d): prompts served from the drain checkpoint on one rank
+MESH_CKPT_SERVE_LENS = (100, 512, 1024)
+#: (e): the example's default mode over two torchrun ranks on the card
+#: (10 steps, not 20: the script's time; its gates are the exit code and
+#: the validation lines)
+EXAMPLE_RANKS = 2
+EXAMPLE_RANKS_ARGS = ["--steps", "10"]
+
+
+def _mesh_ckpt_trainer(mp: int, ckpt_dir: str, steps: int):
+    """Full-width danube at MESH_TRAIN_LAYERS layers on the local mesh of
+    ``model_parallel=mp``, tp mode, checkpoints in ``ckpt_dir`` (keep
+    MESH_CKPT_KEEP), its checkpointer's gathers and writes timed."""
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import Model, ShapeSpec
+    from repro_torch.sharding import Partitioner
+    from repro_torch.train import TrainConfig, Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=MESH_TRAIN_LAYERS)
+    mesh = make_local_mesh(mp)
+    B, S = MESH_TRAIN_SHAPE
+    t = Trainer(Model(cfg, mesh), ShapeSpec("mesh-ckpt", "train", S, B), DEVICE,
+                TrainConfig(peak_lr=TRAIN_LR, warmup=2, total_steps=MESH_CKPT_TOTAL),
+                TrainerConfig(steps=steps, ckpt_every=MESH_CKPT_EVERY, ckpt_dir=ckpt_dir), rng_seed=MESH_SEED,
+                partitioner=Partitioner(mesh, mode="tp"))
+    t.ckpt = Checkpointer(ckpt_dir, keep=MESH_CKPT_KEEP, mesh=t.mesh)
+    t.io = []  # (what, seconds, bytes)
+    for name in ("_snapshot", "_write"):
+        fn = getattr(t.ckpt, name)
+
+        def timed(*a, _fn=fn, _name=name):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nbytes = sum(x.nbytes for _, x, _ in a[1]) if _name == "_write" else 0
+            out = _fn(*a)
+            if _name == "_snapshot":
+                nbytes = sum(x.nbytes for _, x, _ in out)
+            t.io.append(("gather" if _name == "_snapshot" else "write", time.perf_counter() - t0, nbytes))
+            return out
+
+        setattr(t.ckpt, name, timed)
+    return t
+
+
+def _mesh_ckpt_restores(t) -> list:
+    """``t``'s restores record (the step restored, seconds)."""
+    import torch
+
+    out, orig = [], t._maybe_restore
+
+    def restore():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig()
+        torch.cuda.synchronize()
+        out.append((t.step, time.perf_counter() - t0))
+
+    t._maybe_restore = restore
+    return out
+
+
+def _blocks_equal_files(t, path: str) -> bool:
+    """Each of this rank's blocks of ``t.state`` equals ``local_block`` of
+    the leaf on disk under ``t``'s specs, bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.checkpoint.checkpointer import _tensor
+    from repro_torch.sharding import local_block
+    from repro_torch.sharding.partition import spec_items
+
+    with open(os.path.join(path, "manifest.json")) as f:
+        files = {leaf["key"]: leaf for leaf in json.load(f)["leaves"]}
+    specs = dict(spec_items(t.specs))
+    for key, block in tree.items(t.state):
+        whole = _tensor(np.load(os.path.join(path, files[key]["file"])), files[key]["dtype"], "cpu")
+        if not torch.equal(local_block(whole, specs[key], t.mesh).to(block.device), block):
+            return False
+    return True
+
+
+def _history(res) -> list:
+    return [[h["step"], h["loss"]] for h in res["history"]]
+
+
+def mesh_ckpt_rank(argv) -> int:
+    """One rank of [mesh-ckpt] (``chip_smoke.py --mesh-ckpt-rank RANK STORE
+    DIR CARD``): joins the gloo group over the FileStore, runs (a)-(c) with
+    checkpoints in DIR/ckpt, writes its readings to DIR/rank<RANK>.json."""
+    import threading
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import list_checkpoints
+
+    rank, store, work, card = int(argv[0]), argv[1], argv[2], argv[3]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=MESH_RANKS)
+    ckpt = os.path.join(work, "ckpt")
+    res = {"rank": rank}
+
+    # (a) failure and replay: the FAIL_AT-th step call fails on every rank
+    # before its collectives; rank 1 alone fails after FAIL_AFTER steps
+    # returned; (b) rank 2 alone asks for a drain after DRAIN_AFTER
+    t = _mesh_ckpt_trainer(2, ckpt, 2 * MESH_CKPT_DRAIN_AFTER)
+    step, calls, one, done = t.step_fn, [0], t._one_step, [0]
+
+    def failing_step(state, batch):
+        calls[0] += 1
+        if calls[0] == MESH_CKPT_FAIL_AT:
+            raise RuntimeError("injected failure on every rank")
+        return step(state, batch)
+
+    def one_step():
+        one()
+        done[0] += 1
+        if rank == 1 and done[0] == MESH_CKPT_FAIL_AFTER:
+            raise RuntimeError("injected failure on rank 1 after its step")
+        if rank == 2 and done[0] == MESH_CKPT_DRAIN_AFTER:
+            th = threading.Thread(target=t.request_drain, name="remediation-hook")
+            th.start()
+            th.join()
+
+    t.step_fn, t._one_step = failing_step, one_step
+    restores = _mesh_ckpt_restores(t)
+    _mesh_sync()
+    t0 = time.perf_counter()
+    out = t.run()
+    newest = list_checkpoints(ckpt)[0]
+    res["a"] = {"wall": time.perf_counter() - t0, "history": _history(out), "failures": out["failures"],
+                "restores": list(restores), "io": list(t.io), "drained": out["drained"], "step": t.step,
+                "newest": os.path.basename(newest)}
+
+    # (c) on 2x2 the drained trainer continues in place, from the state the
+    # drain saved (its blocks held against the files); the other meshes
+    # restore the drain checkpoint
+    t_mesh = time.perf_counter()
+    same = _blocks_equal_files(t, newest)
+    t.draining.clear()
+    t.drained, t.ckpt, t.cfg.steps = False, None, MESH_CKPT_DRAIN_AT + MESH_CKPT_MORE
+    out = t.run()
+    res["c"] = {"2x2": {"step": t.step - out["steps_run"], "restore_s": None, "blocks_equal": same,
+                        "history": _history(out)[-out["steps_run"]:], "bytes": step.bytes_accessed,
+                        "wall": time.perf_counter() - t_mesh}}
+    del t, step
+    torch.cuda.empty_cache()
+
+    # (c) the drain checkpoint restored onto 2x2, 1x4 and 4x1, MORE steps each
+    for name, mp in MESH_CKPT_MESHES[1:]:
+        _mesh_sync()
+        t_mesh = time.perf_counter()
+        t = _mesh_ckpt_trainer(mp, ckpt, MESH_CKPT_DRAIN_AT + MESH_CKPT_MORE)
+        torch.cuda.synchronize()
+        _mesh_sync()
+        t0 = time.perf_counter()
+        t._maybe_restore()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = _blocks_equal_files(t, newest)
+        t.ckpt = None  # the continuation writes no checkpoint
+        out = t.run()
+        res["c"][name] = {"step": t.step - out["steps_run"], "restore_s": restore_s, "blocks_equal": same,
+                          "history": _history(out), "bytes": t.step_fn.bytes_accessed,
+                          "wall": time.perf_counter() - t_mesh}
+        del t
+        torch.cuda.empty_cache()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _replay_gap(history: list) -> float:
+    """The largest |loss - the first loss of its step| over the history."""
+    first, gap = {}, 0.0
+    for step, loss in history:
+        gap = max(gap, abs(loss - first.setdefault(step, loss)))
+    return gap
+
+
+def _mesh_ckpt_check(res: list, where: str) -> str:
+    """The ranks' readings of (a)-(c) held and printed; returns the drain
+    checkpoint's directory name."""
+    a0, c0 = res[0]["a"], res[0]["c"]
+    for x in res:
+        if x["a"]["history"] != a0["history"] or [s for s, _ in x["a"]["restores"]] != [s for s, _ in a0["restores"]]:
+            raise AssertionError(f"[mesh-ckpt] rank {x['rank']}'s run (a) differs from rank 0's")
+        if not x["a"]["drained"] or x["a"]["step"] != MESH_CKPT_DRAIN_AT or x["a"]["newest"] != a0["newest"]:
+            raise AssertionError(f"[mesh-ckpt] rank {x['rank']} drained {x['a']['drained']} at step {x['a']['step']}")
+    steps = [s for s, _ in a0["history"]]
+    gap = _replay_gap(a0["history"])
+    losses = [loss for _, loss in a0["history"]]
+    print(f"[mesh-ckpt] (a) 2x2, a checkpoint every {MESH_CKPT_EVERY} (keep {MESH_CKPT_KEEP}), step call "
+          f"{MESH_CKPT_FAIL_AT} failing on every rank, rank 1 failing after its step {MESH_CKPT_FAIL_AFTER}: steps run "
+          f"{steps}, failures {a0['failures']}, restored steps {[s for s, _ in a0['restores']]} in "
+          f"{', '.join(f'{x:.2f}' for _, x in a0['restores'])} s on rank 0; losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)}; replayed against first attempts max|d| {gap:.3g}; run "
+          f"{a0['wall']:.1f} s {where}")
+    if steps != [1, 2, 3, 3] or a0["failures"] != 2 or [s for s, _ in a0["restores"]] != [0, 2, 2]:
+        raise AssertionError(f"[mesh-ckpt] (a) steps {steps}, failures {a0['failures']}, restores {a0['restores']}")
+    if not all(map(math.isfinite, losses)) or gap > 0.0:
+        raise AssertionError(f"[mesh-ckpt] (a) replayed losses differ from the first attempts' by {gap:.3g}")
+    gathers = [(sec, n) for what, sec, n in a0["io"] if what == "gather"]
+    writes = [sec for what, sec, _ in a0["io"] if what == "write"]
+    print(f"[mesh-ckpt] (a) saves on rank 0 (periodic at step {MESH_CKPT_EVERY}, the drain's at step "
+          f"{MESH_CKPT_DRAIN_AT}), gather + write: {', '.join(f'{g:.2f} + {w:.2f} s' for (g, _), w in zip(gathers, writes))}"
+          f" of {gathers[0][1]:,} bytes {where}")
+    print(f"[mesh-ckpt] (b) drain asked on rank 2 alone, from a second thread, after its step {MESH_CKPT_DRAIN_AFTER}: "
+          f"every rank drained at step {[x['a']['step'] for x in res]}, checkpoint {a0['newest']}")
+    if a0["newest"] != f"step_{MESH_CKPT_DRAIN_AT}":
+        raise AssertionError(f"[mesh-ckpt] (b) newest checkpoint {a0['newest']}")
+    ref = [loss for _, loss in c0["2x2"]["history"]]
+    for name, _ in MESH_CKPT_MESHES:
+        got = [loss for _, loss in c0[name]["history"]]
+        d = max(abs(x - y) for x, y in zip(got, ref))
+        how = ("continued in place on 2x2" if name == "2x2" else f"restored onto {name} in "
+               f"{', '.join(f'{x['c'][name]['restore_s']:.2f}' for x in res)} s (ranks 0-3)")
+        print(f"[mesh-ckpt] (c) {a0['newest']} {how}, state bytes per rank "
+              f"{[x['c'][name]['bytes'] for x in res]}, blocks equal to local_block of the files: "
+              f"{[x['c'][name]['blocks_equal'] for x in res]}; losses {', '.join(f'{x:.6f}' for x in got)}, "
+              f"against 2x2 max|d| {d:.3g} (limit {MESH_LOSS_LIMIT:g}); {c0[name]['wall']:.1f} s {where}")
+        if any(x["c"][name]["step"] != MESH_CKPT_DRAIN_AT or not x["c"][name]["blocks_equal"] for x in res):
+            raise AssertionError(f"[mesh-ckpt] (c) {name}: a rank restored another step or other blocks")
+        if len(got) != MESH_CKPT_MORE or not d <= MESH_LOSS_LIMIT:
+            raise AssertionError(f"[mesh-ckpt] (c) {name}: losses {got} against 2x2 {ref}")
+    return a0["newest"]
+
+
+def mesh_ckpt_phase() -> int:
+    """[mesh-ckpt]: (a)-(c) over MESH_RANKS ranks sharing the card, then (d)
+    the drain checkpoint restored on one rank with no group and served,
+    and (e) the example's default mode over EXAMPLE_RANKS torchrun ranks.
+    Returns the flash_attention launches of (d)."""
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    release("before [mesh-ckpt]")
+    work = tempfile.mkdtemp(prefix="thapi_mesh_ckpt_")
+    try:
+        card = card_line()
+        where = f"({card}; {MESH_RANKS} ranks sharing one card over gloo)"
+        newest = _mesh_ckpt_check(_run_ranks("mesh-ckpt", "--mesh-ckpt-rank", work, card, MESH_CKPT_TIMEOUT_S),
+                                  where)
+        # (d) one rank, no group: the drain checkpoint's whole leaves served
+        model = Model(dataclasses.replace(get_config(TRAIN_ARCH), num_layers=MESH_TRAIN_LAYERS))
+        t0 = time.perf_counter()
+        restored, man = Checkpointer(os.path.join(work, "ckpt")).restore(os.path.join(work, "ckpt", newest),
+                                                                         {"params": model.shapes()}, device=DEVICE)
+        torch.cuda.synchronize()
+        print(f"[mesh-ckpt] (d) {newest} restored on one rank with no group in {time.perf_counter() - t0:.2f} s "
+              f"({sum(m['nbytes'] for m in man.leaves):,} bytes on disk) {card}")
+        flash = serve_trained(model, restored["params"], MESH_CKPT_SERVE_LENS, "mesh-ckpt-serve",
+                              os.path.join(work, "serve"), MESH_TRAIN_LAYERS, "the 2x2 drain checkpoint")
+        del restored
+        release("after [mesh-ckpt] (d)")
+        # (e) the example's default mode over two ranks
+        run_example("default over ranks", EXAMPLE_RANKS_ARGS, ["validation: clean",
+                    f"OK: the traces of all {EXAMPLE_RANKS} ranks validate without errors"], ranks=EXAMPLE_RANKS)
+        return flash
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4248,6 +4583,8 @@ def main(argv=()) -> int:
         return 1
     if argv[:1] == ["--mesh-rank"]:
         return mesh_rank(argv[1:])
+    if argv[:1] == ["--mesh-ckpt-rank"]:
+        return mesh_ckpt_rank(argv[1:])
     print(card_line())
     if argv[:1] == ["--compare"]:
         return compare_only(argv[1] if len(argv) > 1 else os.path.join(ROOT, "src"))
@@ -4300,6 +4637,7 @@ def main(argv=()) -> int:
     for name, n in timed("dryrun", dryrun_phase).items():
         launches[name] += n
     launches["flash_attention"] += timed("mesh", mesh_phase)
+    launches["flash_attention"] += timed("mesh-ckpt", mesh_ckpt_phase)
     print(f"[time] the phases: {'; '.join(f'{k} {v:.1f} s' for k, v in seconds.items())}; all "
           f"{time.perf_counter() - t_start:.1f} s")
     for k in kernels:

@@ -1,9 +1,14 @@
 """End-to-end driver: train a ~100M-param dense model for a few hundred
-steps on one device, with checkpointing, tracing and a final tally +
+steps on the local mesh, with checkpointing, tracing and a final tally +
 validation report (the JAX package's ``examples/distributed_train.py``,
 in PyTorch).
 
     PYTHONPATH=src python -m repro_torch.examples.distributed_train [--steps 200] [--device cpu]
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.examples.distributed_train --steps 20
+
+Started by ``torchrun``, the default mode trains over its ranks (``gloo``;
+the ranks may share a card), each rank holding its blocks of the state.
 
 (~100M params: 12L × d512 × ff2048 × 32k vocab ≈ 96M.)  Every mode runs
 on CUDA unless ``--device cpu`` is given, and raises without a card; the
@@ -56,7 +61,10 @@ from repro_torch.configs import get_config
 from repro_torch.core import TraceConfig, Tracer
 from repro_torch.core.plugins.tally import render, tally_trace
 from repro_torch.core.plugins.validate import render as vrender, validate_trace
+from repro_torch.launch.mesh import describe, join_torchrun_group, leave_group, make_local_mesh
 from repro_torch.models import Model, ShapeSpec
+from repro_torch.sharding import Partitioner
+from repro_torch.sharding.collectives import any_rank, from_rank0
 from repro_torch.train import TrainConfig, Trainer, TrainerConfig
 
 #: the worker processes run this module: ``python -m`` + its name
@@ -1117,30 +1125,56 @@ def main(argv=None):
     if args.live:
         sys.exit(run_live(args))
 
-    cfg = config_100m()
-    model = Model(cfg)
-    print(f"{cfg.name}: {cfg.num_params() / 1e6:.0f}M params on {device}")
+    return run_default(args)
 
-    work = tempfile.mkdtemp(prefix="thapi_e2e_")
-    with Tracer(TraceConfig(out_dir=work, mode="default", sample=True)):
-        trainer = Trainer(
-            model,
-            ShapeSpec("e2e", "train", args.seq, args.batch),
-            device,
-            TrainConfig(peak_lr=3e-4, warmup=20, total_steps=args.steps),
-            TrainerConfig(
-                steps=args.steps, ckpt_every=50, ckpt_dir=work + "/ckpt", log_every=20
-            ),
-        )
-        res = trainer.run()
 
-    h = res["history"]
-    print(f"\nloss: {h[0]['loss']:.3f} → {h[-1]['loss']:.3f} over {res['steps_run']} steps")
-    print(f"stragglers flagged: {res['straggler_steps']}, failures: {res['failures']}\n")
-    print(render(tally_trace(work), top=10))
-    print()
-    print(vrender(validate_trace(work)))
+def run_default(args) -> int:
+    """The default mode: danube-100m trained on the local mesh, ``(ranks,
+    1)`` over ``("data", "model")``, as the JAX example trains on
+    ``make_mesh((len(jax.devices()), 1))``.  The ranks are those ``torchrun``
+    started (one without it); they share one work directory, which rank 0
+    makes, and its ``ckpt/``.  Every rank traces (into ``rank<R>`` of the
+    work directory on a mesh); rank 0 prints the loss, the tally and the
+    validation of its trace, and on a mesh whether every rank's trace
+    validated, failing if one did not."""
+    device = join_torchrun_group(args.device)
+    try:
+        cfg = config_100m()
+        mesh = make_local_mesh()
+        model = Model(cfg, mesh)
+        rank = torch.distributed.get_rank() if mesh.size > 1 else 0
+        work = from_rank0(mesh, tempfile.mkdtemp(prefix="thapi_e2e_") if rank == 0 else None)
+        trace = os.path.join(work, f"rank{rank}") if mesh.size > 1 else work
+        if rank == 0:
+            print(f"{cfg.name}: {cfg.num_params() / 1e6:.0f}M params on {device}, mesh {describe(mesh)}")
+        with Tracer(TraceConfig(out_dir=trace, mode="default", sample=True, rank=rank)):
+            trainer = Trainer(
+                model,
+                ShapeSpec("e2e", "train", args.seq, args.batch),
+                device,
+                TrainConfig(peak_lr=3e-4, warmup=20, total_steps=args.steps),
+                TrainerConfig(
+                    steps=args.steps, ckpt_every=50, ckpt_dir=work + "/ckpt", log_every=20
+                ),
+                partitioner=Partitioner(mesh),
+            )
+            res = trainer.run()
+        findings = validate_trace(trace)
+        (failed,) = any_rank(mesh, any(f.severity == "error" for f in findings))
+        if rank == 0:
+            h = res["history"]
+            print(f"\nloss: {h[0]['loss']:.3f} → {h[-1]['loss']:.3f} over {res['steps_run']} steps")
+            print(f"stragglers flagged: {res['straggler_steps']}, failures: {res['failures']}\n")
+            print(render(tally_trace(trace), top=10))
+            print()
+            print(vrender(findings))
+            if mesh.size > 1:
+                print(f"{'FAIL' if failed else 'OK'}: the traces of all {mesh.size} ranks validate"
+                      f"{' not' if failed else ''} without errors")
+        return int(mesh.size > 1 and failed)
+    finally:
+        leave_group()
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

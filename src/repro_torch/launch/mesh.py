@@ -23,9 +23,11 @@ device or a process group.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Iterable, Optional, Tuple
 
-__all__ = ["Mesh", "RemeshPlan", "describe", "make_local_mesh", "make_production_mesh", "plan_eviction"]
+__all__ = ["Mesh", "RemeshPlan", "describe", "join_torchrun_group", "leave_group", "make_local_mesh",
+           "make_production_mesh", "plan_eviction"]
 
 
 class Mesh:
@@ -68,6 +70,15 @@ class Mesh:
             return 0
         return self.device_mesh.get_local_rank(axis)
 
+    def coords(self, rank: int) -> Dict[str, int]:
+        """Global ``rank``'s index along each axis: ranks are laid out row
+        major over the axes, as :func:`make_local_mesh` lays them out."""
+        out = {}
+        for name in reversed(self.axis_names):
+            out[name] = rank % self.shape[name]
+            rank //= self.shape[name]
+        return {name: out[name] for name in self.axis_names}
+
     def __repr__(self) -> str:
         kind = "logical" if self.logical else ("device" if self.device_mesh is not None else "one-rank")
         return f"Mesh({describe(self)}, {kind})"
@@ -102,6 +113,34 @@ def make_local_mesh(model_parallel: Optional[int] = None) -> Mesh:
     kind = "cpu" if dist.get_backend() == "gloo" else "cuda"
     dm = DeviceMesh(kind, torch.arange(n).reshape(n // mp, mp), mesh_dim_names=("data", "model"))
     return Mesh(shape, dm)
+
+
+def join_torchrun_group(device):
+    """Under ``torchrun`` (``WORLD_SIZE`` > 1 in the environment), join its
+    process group over ``gloo``, the backend that runs more than one rank
+    on one card, and return this rank's device: ``cuda:LOCAL_RANK`` modulo
+    the cards, or ``device`` when it is not a card.  Without ``torchrun``
+    nothing is joined and ``device`` comes back as it was."""
+    import torch
+    import torch.distributed as dist
+
+    device = torch.device(device)
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return device
+    if not dist.is_initialized():
+        dist.init_process_group("gloo", init_method="env://")
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")) % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    return device
+
+
+def leave_group() -> None:
+    """Leave the group :func:`join_torchrun_group` joined, if it joined one."""
+    import torch.distributed as dist
+
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def describe(mesh: Mesh) -> str:

@@ -12,10 +12,18 @@ published width on one card, weights drawn from ``--seed``.  The dense,
 VLM, MoE and audio families train (whisper over the pipeline's random
 frames); the SSM and hybrid families exit non-zero, naming the ROADMAP
 entry for them.  As the JAX launcher does, it trains on the local mesh,
-``(world, 1)`` over ``("data", "model")`` (the ranks of a live
-``torch.distributed`` process group, else one rank), through a
-``Partitioner`` in the config's mode; every rank takes the same batches
-and keeps its rows.
+``(world, 1)`` over ``("data", "model")``, through a ``Partitioner`` in
+the config's mode; every rank takes the same batches and keeps its rows.
+
+Started by ``torchrun``, the launcher joins its process group (``gloo``:
+the ranks may share a card) and trains over its ranks, each on
+``cuda:LOCAL_RANK`` modulo the cards, with ``--ckpt-dir`` shared by all;
+a start over another rank count restores the newest checkpoint resharded
+onto its mesh.  Rank 0 prints; every rank traces into ``rank<R>`` under
+``--trace-dir``.  Without ``torchrun`` it trains on one rank::
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.train --device cpu --arch stablelm-3b --steps 4 --ckpt-dir /tmp/ck
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ import torch
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core import TraceConfig, Tracer
 from repro_torch.core.plugins.tally import render, tally_trace
-from repro_torch.launch.mesh import describe, make_local_mesh
+from repro_torch.launch.mesh import describe, join_torchrun_group, leave_group, make_local_mesh
 from repro_torch.models import Model, ShapeSpec
 from repro_torch.sharding import Partitioner
 from repro_torch.train import TrainConfig, Trainer, TrainerConfig
@@ -62,10 +70,19 @@ def main(argv=None) -> int:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to train on the CPU")
+    try:
+        return _train(args, join_torchrun_group(device))
+    finally:
+        leave_group()
+
+
+def _train(args, device) -> int:
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.smoke()
     mesh = make_local_mesh()
+    rank = torch.distributed.get_rank() if mesh.size > 1 else 0
+    trace_dir = os.path.join(args.trace_dir, f"rank{rank}") if mesh.size > 1 else args.trace_dir
     model = Model(cfg, mesh)
     try:
         model.check_trainable()
@@ -91,18 +108,20 @@ def main(argv=None) -> int:
     tracer = None
     if args.trace != "off":
         tracer = Tracer(
-            TraceConfig(out_dir=args.trace_dir, mode=args.trace, sample=args.sample)
+            TraceConfig(out_dir=trace_dir, mode=args.trace, sample=args.sample, rank=rank)
         ).start()
     try:
         res = trainer.run()
     finally:
         if tracer is not None:
             tracer.stop()
+    if rank:
+        return 0
     h = res["history"]
     print(f"{args.arch}: loss {h[0]['loss']:.3f} → {h[-1]['loss']:.3f} in {res['steps_run']} steps "
           f"on {device} ({cfg.name}, {cfg.dtype}, mesh {describe(mesh)})")
     if tracer is not None:
-        print(render(tally_trace(args.trace_dir), top=8))
+        print(render(tally_trace(trace_dir), top=8))
     return 0
 
 

@@ -11,4 +11,4 @@ from .partition import (  # noqa: F401
     logical_to_pspec,
     spec_items,
 )
-from .placement import Placed, at_use, gather_whole, local_block, place, reshard, take  # noqa: F401
+from .placement import Placed, at_use, gather_to_host, gather_whole, local_block, place, reshard, take  # noqa: F401

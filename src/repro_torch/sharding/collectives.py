@@ -146,6 +146,32 @@ class _AllToAll(torch.autograd.Function):
         return _raw_all_to_all(g, ctx.mesh, ctx.axis), None, None
 
 
+def any_rank(mesh, *flags: bool) -> Tuple[bool, ...]:
+    """Each flag, true where it is true on any rank of ``mesh`` (a max
+    all-reduce of a few bytes over the process group the mesh spans; the
+    flags as given on a one-rank mesh).  The ranks agree through it on what
+    every rank must do alike."""
+    if mesh.size == 1:
+        return tuple(bool(f) for f in flags)
+    t = torch.tensor([int(bool(f)) for f in flags], dtype=torch.int32)
+    if not _on_host(None):
+        t = t.cuda()
+    with collective_span("all_reduce", t.numel() * t.element_size(), "world", mesh.size):
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return tuple(bool(v) for v in t.tolist())
+
+
+def from_rank0(mesh, obj):
+    """Rank 0's ``obj`` on every rank of ``mesh`` (``obj`` itself on a
+    one-rank mesh)."""
+    if mesh.size == 1:
+        return obj
+    box = [obj]
+    with collective_span("broadcast", 0, "world", mesh.size):
+        dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 def psum(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
     """The sum over every rank along ``axes`` (``lax.psum``)."""
     for a in _axes(axes):

@@ -9,6 +9,11 @@ the whole tensor, :func:`gather_whole` rebuilds the whole tensor from the
 blocks (a differentiable ``all_gather`` per axis, minor axis first), and
 :func:`reshard` turns one spec's block into another's.
 
+A checkpoint holds whole leaves: :func:`gather_to_host` brings a leaf whole
+into rank 0's host memory from every rank's block, and a restore cuts each
+rank's block from the whole leaf read from disk with :func:`local_block`
+under the spec of the mesh it restores onto.
+
 A :class:`Placed` leaf is a rank's block with its spec, handed to the
 model in place of the whole tensor.  ``whole_at_use`` leaves are gathered
 whole where a block uses them (:func:`at_use`; a layer-stacked leaf one
@@ -19,7 +24,10 @@ weights) reach the layer that reshards them to its own spec.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
 import torch
+import torch.distributed as dist
 
 from . import collectives as C
 from .partition import PartitionSpec
@@ -50,12 +58,13 @@ class Placed:
         return gather_whole(self.local, self.spec, self.mesh)
 
 
-def _index_on(axes, mesh) -> tuple:
-    """(blocks over ``axes``, this rank's block index, row major)."""
+def _index_on(axes, mesh, coords=None) -> tuple:
+    """(blocks over ``axes``, the block index of this rank, or of the rank at
+    ``coords``, row major)."""
     n, i = 1, 0
     for a in axes:
         size = mesh.shape.get(a, 1)
-        i = i * size + C.axis_index(mesh, a)
+        i = i * size + (C.axis_index(mesh, a) if coords is None else coords.get(a, 0))
         n *= size
     return n, i
 
@@ -85,6 +94,43 @@ def block_shape(shape, spec: PartitionSpec, mesh) -> tuple:
         for a in spec.axes_of(d):
             out[d] //= mesh.shape.get(a, 1)
     return tuple(out)
+
+
+def gather_to_host(local: torch.Tensor, spec: PartitionSpec, mesh) -> Optional[torch.Tensor]:
+    """The whole leaf in host memory on rank 0, from the ranks' blocks under
+    ``spec``; None on the other ranks.  Each distinct block comes from one
+    rank, the first that holds it (index 0 on every axis the spec does not
+    split), sent to rank 0 as bytes and placed as it arrives; no rank's
+    device holds more than its block.  A leaf that no axis of more than one
+    rank splits is whole on every rank: rank 0 copies its own and nothing
+    moves.  The mesh spans the whole group (:func:`make_local_mesh`).  Like
+    the JAX checkpointer's host copy, the moves are no ``ust_collective``
+    rows: the trace model has no point-to-point send."""
+    rank = dist.get_rank() if mesh.size > 1 else 0
+    split = [a for a in spec.mesh_axes() if mesh.shape.get(a, 1) > 1]
+    if not split:
+        return local.detach().to("cpu", copy=True) if rank == 0 else None
+    owners = [r for r in range(mesh.size) if all(i == 0 for a, i in mesh.coords(r).items() if a not in split)]
+    if rank != 0:
+        if rank in owners:
+            dist.send(C._stage(local, None).reshape(-1).view(torch.uint8), dst=0)
+        return None
+    shape = [local.shape[d] * _index_on(spec.axes_of(d), mesh, {})[0] for d in range(local.ndim)]
+    whole = torch.empty(shape, dtype=local.dtype)
+    for r in owners:
+        if r == 0:
+            block = local.detach().cpu()
+        else:
+            buf = torch.empty(local.numel() * local.element_size(), dtype=torch.uint8,
+                              device="cpu" if C._on_host(None) else local.device)
+            dist.recv(buf, src=r)
+            block = buf.view(local.dtype).reshape(local.shape).cpu()
+        at, coords = whole, mesh.coords(r)
+        for d in range(local.ndim):
+            _, i = _index_on(spec.axes_of(d), mesh, coords)
+            at = at.narrow(d, i * local.shape[d], local.shape[d])
+        at.copy_(block)
+    return whole
 
 
 def gather_whole(local: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:

@@ -20,10 +20,30 @@ Fault tolerance (1000-node posture, exercised in tests):
     API, how far behind the cluster median — into the same watchdog via
     ``trainer.straggler_callback`` (on a real cluster this triggers rank
     replacement — here it feeds the trace and the run report);
-  * the state lives on one device and is updated in place; a restore
-    copies the checkpoint into it.  A state sharded over more than one
-    rank is not checkpointed yet: its resharding on restore is not ported
-    (ROADMAP.md §1, item 5b).
+  * the state is updated in place; a restore reads the checkpoint to host
+    memory and copies it into the state.
+
+Over a mesh of ranks (a ``Partitioner`` whose mesh spans the process
+group) every rank runs the same loop on its blocks of the state, and the
+ranks share ``ckpt_dir``.  A checkpoint holds whole leaves, gathered into
+rank 0 and written by it alone, in the one-device format; a restore cuts
+each rank's blocks under the current mesh, so a run restarted on another
+mesh shape continues from it.  Where the JAX trainer's single controller
+sees a failure on every device at once, the ranks agree at each step
+boundary: one all-reduce carries "my step raised" and "a drain was
+requested here", and then every rank restores and replays, or drains, at
+the same step.  Rank 0 alone lists the checkpoints and picks the one to
+restore, and a restore that fails on any rank sends every rank to the next
+older one.  What the agreement cannot cover: a rank that raises *before*
+its step's collectives leaves its peers waiting inside one; the process
+group's timeout then ends the run on every rank, and a restart restores
+the newest checkpoint.  Failures the agreement sees are those raised on
+every rank at the same step, or on some ranks after their step returned
+(their state is then wrong until the restore replaces it).
+
+Every rank takes the whole batch from the pipeline and keeps its rows (the
+JAX trainer hands its mesh ``global_batch / dp`` rows as if they were the
+global batch: ROADMAP.md §3, fault 31).
 """
 
 from __future__ import annotations
@@ -42,7 +62,8 @@ from repro_torch.core.interception import data_next_span, optimizer_update_span,
 from repro_torch.core.telemetry import StepRateGauge
 from repro_torch.data import DataConfig, SyntheticPipeline
 from repro_torch.models import Model, ShapeSpec
-from repro_torch.train.train_step import TrainConfig, build_train_step, init_state
+from repro_torch.sharding import collectives as C
+from repro_torch.train.train_step import TrainConfig, build_train_step, init_state, one_rank, state_specs
 
 
 @dataclasses.dataclass
@@ -146,13 +167,14 @@ class Trainer:
         self.tcfg = tcfg
         self.cfg = cfg
         model.check_trainable()
-        if partitioner is not None and partitioner.mesh.size > 1 and cfg.ckpt_dir:
-            raise NotImplementedError("checkpoints of a state sharded over ranks are not ported "
-                                      "(resharding on restore, ROADMAP.md section 1 item 5b)")
-        self.step_fn = build_train_step(model, shape, tcfg, self.device, partitioner)
-        self.state = init_state(model, tcfg, torch.Generator(device=self.device).manual_seed(rng_seed), partitioner)
+        self.partitioner = one_rank(partitioner)
+        self.mesh = self.partitioner.mesh
+        self.specs = state_specs(model, self.partitioner, tcfg)[1]
+        self.step_fn = build_train_step(model, shape, tcfg, self.device, self.partitioner)
+        self.state = init_state(model, tcfg, torch.Generator(device=self.device).manual_seed(rng_seed),
+                                self.partitioner)
         self.pipe = SyntheticPipeline(model, shape, cfg.data, dp_rank=0, dp_size=1)
-        self.ckpt = Checkpointer(cfg.ckpt_dir) if cfg.ckpt_dir else None
+        self.ckpt = Checkpointer(cfg.ckpt_dir, mesh=self.mesh) if cfg.ckpt_dir else None
         self.step = 0
         self.history: List[Dict[str, float]] = []
         self.watchdog = StragglerWatchdog(factor=cfg.straggler_factor)
@@ -190,13 +212,20 @@ class Trainer:
             return
         # walk newest → oldest: a damaged restore point (truncated leaf,
         # corrupt manifest, failed CRC) falls back to the next-older one
-        # instead of killing the run
-        for path in list_checkpoints(self.ckpt.root):
+        # instead of killing the run.  Rank 0 lists and picks; a restore
+        # that fails on any rank moves every rank to the next one.
+        candidates = iter(list_checkpoints(self.ckpt.root) if self.ckpt.writer else ())
+        while True:
+            path = C.from_rank0(self.mesh, next(candidates, None))
+            if path is None:
+                return
             try:
                 # read to host memory, then copy into the state on the
                 # device: the card never holds two states at once
-                restored, man = self.ckpt.restore(path, self.state, device="cpu")
+                restored, man = self.ckpt.restore(path, self.state, device="cpu", specs=self.specs, mesh=self.mesh)
             except Exception:
+                restored = None
+            if C.any_rank(self.mesh, restored is None)[0]:
                 continue
             tree.copy_into(self.state, restored)
             self.step = man.step
@@ -207,7 +236,7 @@ class Trainer:
     def _save(self) -> None:
         if self.ckpt is None:
             return
-        self.ckpt.save_async(self.step, self.state, extra={"data": self.pipe.state_dict()})
+        self.ckpt.save_async(self.step, self.state, extra={"data": self.pipe.state_dict()}, specs=self.specs)
 
     # -- checkpoint-and-drain (remediation rung 2) --------------------------------
     def request_drain(self) -> None:
@@ -218,7 +247,9 @@ class Trainer:
         thread while the step loop runs.  It only sets an event: the drain
         checkpoint is written by :meth:`run`'s own thread at the step
         boundary, so the hook neither blocks the consumer's flushes for the
-        length of a save nor touches the device from a second thread.
+        length of a save nor touches the device from a second thread.  On
+        a mesh, a drain requested on one rank drains every rank at the
+        same step boundary.
         """
         self.draining.set()
 
@@ -230,14 +261,15 @@ class Trainer:
         the rank still quiesces, it just has nothing durable to hand over).
         Idempotent: a second call re-commits but hooks run once per drain.
         The remediation ladder's *drain-before-evict* invariant is anchored
-        on :attr:`drained` turning True here and nowhere else.
+        on :attr:`drained` turning True here and nowhere else.  On a mesh
+        every rank calls it (``run`` does, at the agreed step).
         """
         self.draining.set()
         path = None
         if self.ckpt is not None:
             self.ckpt.wait()  # join any in-flight async commit first
             path = self.ckpt.save(
-                self.step, self.state, extra={"data": self.pipe.state_dict()}
+                self.step, self.state, extra={"data": self.pipe.state_dict()}, specs=self.specs
             )
         already = self.drained
         self.drained = True
@@ -259,6 +291,8 @@ class Trainer:
         the new ``incarnation`` (its fencing credential on the stream), and
         extends the step budget by ``extra_steps`` — the work the mesh
         splice clawed back from the survivors.  Returns the restored step.
+        The new trainer's mesh may differ from its predecessor's; on a mesh
+        every rank calls it.
         """
         inc = int(incarnation)
         if inc < 0:
@@ -282,22 +316,30 @@ class Trainer:
     def run(self) -> Dict[str, Any]:
         self._maybe_restore()
         start = self.step
-        while self.step < self.cfg.steps and not self.draining.is_set():
+        (drain,) = C.any_rank(self.mesh, self.draining.is_set())
+        while self.step < self.cfg.steps and not drain:
+            err = None
             try:
                 self._one_step()
+            except Exception as e:
+                err = e
+            # the step boundary: every rank learns whether any rank's step
+            # raised and whether any rank was asked to drain
+            failed, drain = C.any_rank(self.mesh, err is not None, self.draining.is_set())
+            if not failed:
+                continue
+            self.failures += 1
+            if self.failures > self.cfg.max_failures or self.ckpt is None:
+                raise err if err is not None else RuntimeError("a step failed on another rank")
+            # fault tolerance: restore + replay
+            try:
+                self.ckpt.wait()
             except Exception:
-                self.failures += 1
-                if self.failures > self.cfg.max_failures or self.ckpt is None:
+                self.failures += 1  # a failed async commit also burns budget
+                if self.failures > self.cfg.max_failures:
                     raise
-                # fault tolerance: restore + replay
-                try:
-                    self.ckpt.wait()
-                except Exception:
-                    self.failures += 1  # a failed async commit also burns budget
-                    if self.failures > self.cfg.max_failures:
-                        raise
-                self._maybe_restore()
-        if self.draining.is_set():
+            self._maybe_restore()
+        if drain:
             # drain requested mid-run: durable checkpoint + quiesce hooks,
             # then hand back early with drained=True
             self.checkpoint_and_drain()

@@ -1,6 +1,7 @@
 """PyTorch port, the fault-tolerant trainer: twins of the JAX package's
 trainer tests (``test_train_serve.py``; drain and replacement from
-``test_resilience.py`` and ``test_elastic.py``), on the CPU at the smoke
+``test_resilience.py`` and ``test_elastic.py``; the straggler watchdog
+from ``test_cluster.py``), on the CPU at the smoke
 width of stablelm-3b, fp32.  The port's trainer takes a device where the
 JAX one takes a partitioner.  A resumed run's last loss equals the straight
 run's within 1e-5 relative, as in the JAX test."""
@@ -171,3 +172,18 @@ def test_restore_falls_back_over_damaged_checkpoint(smoke_model, tmp_path):
 def test_trainer_refuses_a_family_not_trained():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mk_trainer(Model(get_config("mamba2-1.3b").smoke()), None)
+
+
+def test_straggler_watchdog_ewma_and_api_channels():
+    """Twin of ``test_cluster.py::test_straggler_watchdog_ewma_and_api_channels``."""
+    from repro_torch.train import StragglerWatchdog
+
+    w = StragglerWatchdog(factor=3.0)
+    assert not w.observe_step(1.0)  # first step seeds the EWMA
+    assert not w.observe_step(1.1)
+    assert w.observe_step(10.0)  # > 3x EWMA
+    assert w.slow_steps == 1
+    w.note_api_evidence("host:1:rank2", "ust_repro", "train_step", 3.4, "test")
+    reps = w.api_reports()
+    assert len(reps) == 1 and reps[0].source == "host:1:rank2"
+    assert reps[0].ratio == pytest.approx(3.4)
