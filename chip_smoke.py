@@ -113,7 +113,8 @@ Phases, each fatal on failure:
   9. [train]: a two-layer full-width fp32 h2o-danube-1.8b train step on the
      card against the CPU (loss, gradient norm, every gradient, and the
      AdamW update from the CPU's gradients); full-width h2o-danube-1.8b
-     (24 layers, bf16 weights, fp32 moments, 18.3 GB of state) trained
+     at TRAIN_LAYERS (8) of its 24 layers (bf16 weights, fp32 moments,
+     7.2 GB of state; all 24 and 18.3 GB until slice 16) trained
      through ``Trainer`` for 8 steps of 4 x 1024 ``SyntheticPipeline``
      tokens under a default-mode trace, with no kernel in the step (the
      JAX package trains through its plain attention), a checkpoint every 4
@@ -123,8 +124,8 @@ Phases, each fatal on failure:
      memory and a profiled step's shares printed; then the step-8
      checkpoint restored from disk (bit for bit the trained weights) into
      ``ServeEngine`` for prompts of 100, 512, 1024 and 512 tokens, 8 new
-     tokens each, the flash kernel 24 x the prefills;
- 10. [remediation]: full-width h2o-danube-1.8b trained as in [train] (no
+     tokens each, the flash kernel a layer x the prefills;
+ 10. [remediation]: [train]'s danube trained as in [train] (no
      periodic checkpoint, no failure) under a default-mode trace on the
      sampled rung whose remediation engine, ticked by the tracer's consumer
      thread, escalates the rung to full, asks the trainer to drain and then
@@ -175,7 +176,10 @@ Phases, each fatal on failure:
      on one device), a gloo group over a FileStore in a temporary
      directory, each rank's exit code checked and the phase bounded by
      MESH_TIMEOUT_S.  (a) moonshot-v1-16b-a3b at full width and 2 of its 48
-     layers, 16 of its 64 experts a rank on the 1x4 mesh: a 2 x 1024
+     layers, 16 of its 64 experts a rank on the 1x4 mesh and, since slice
+     16, its attention, embedding and unembedding on the rank's heads and
+     vocabulary (``artifacts.place_params``; the caches gathered whole to be
+     held and to start the 2x2 steps): a 2 x 1024
      prefill (the sequence path: all-to-alls, the flash kernel in every
      layer) and 4 eager decode steps (the replicated path; gloo collectives
      cannot be captured in a CUDA graph), then the same decode steps on a
@@ -188,10 +192,26 @@ Phases, each fatal on failure:
      (b) compressed_mean of a full-width danube gradient leaf over the four
      ranks within the int8 bound of the plain mean; (c) full-width
      h2o-danube-1.8b at 2 of its 24 layers trained 3 steps of 4 x 1024
-     tokens on the 2x2 mesh in tp mode, each rank holding its blocks of the
-     state (its bytes printed against the whole), the losses within
-     MESH_LOSS_LIMIT and the gradient norms within MESH_GNORM_REL of the
-     one-rank step.
+     tokens on the 2x2 and (since slice 16) the 1x4 mesh in tp mode, each
+     rank holding its blocks of the state (its bytes printed against the
+     whole) and computing its heads, FFN columns and vocabulary, the losses
+     within MESH_LOSS_LIMIT and the gradient norms within MESH_GNORM_REL of
+     the one-rank step, and each rank's matrix FLOPs of a step
+     (``launch.dryrun.Counter``) within MESH_FLOPS_REL of 1/(data x model)
+     of the one rank's; (d) ``ServeEngine(..., partitioner=...)`` on
+     full-width danube on 1x4 and 2x2, six prompts of 100-1024 tokens, 16 new
+     tokens each, 4 slots, its decode step eager (a graph cannot capture
+     gloo), in fp32 at 2 layers (tokens identical to the one-rank engine's,
+     logits within MESH_HOLD["fp32"]) and in bf16 at MESH_SERVE_LAYERS
+     (logits within MESH_HOLD["bf16"], a token flipped at a near tie
+     counted and its request not held after it); per rank, flash a layer a
+     prefill and the cache's K and V the rank's share of the one-rank
+     cache's; every rank ends with the same tokens.  Before it,
+     [flash-local]: the kernel at one rank's heads of each meshed prefill
+     (danube H=8, Kv=2 on 1x4 and H=16, Kv=4 on 2x2, d=80, S = 1024 and
+     4096; moonshot B=2, H=Kv=4, d=128, S=1024 on 1x4) against its plain version
+     and timed beside its bound and scaled_dot_product_attention, its rows
+     added to the kernels line.
      Every time there names the card, its power limit and "4 ranks sharing
      one card over gloo".
  14. [mesh-ckpt], last: the same four ranks on the card (``--mesh-ckpt-rank``)
@@ -2022,6 +2042,17 @@ FLASH_FAMILY_CASES = [
     ("whisper cross", 1, 448, 1500, 16, 16, 64, False),
     ("llava", 2, 3008, 3008, 56, 8, 128, True),
 ]
+#: the flash kernel at one rank's heads of the meshed prefills [mesh] runs
+#: (name, B, S, T, H, Kv, d, causal, window): danube's 8 of 32 query heads and
+#: 2 of 8 KV heads on 1x4, 16 and 4 on 2x2; moonshot's 4 of 16 heads on 1x4
+#: over its two prompt rows (MESH_PROMPT)
+FLASH_LOCAL_CASES = [
+    ("danube 1x4 rank", 1, 1024, 1024, 8, 2, 80, True, 4096),
+    ("danube 1x4 rank", 1, 4096, 4096, 8, 2, 80, True, 4096),
+    ("danube 2x2 rank", 1, 1024, 1024, 16, 4, 80, True, 4096),
+    ("danube 2x2 rank", 1, 4096, 4096, 16, 4, 80, True, 4096),
+    ("moonshot 1x4 rank", 2, 1024, 1024, 4, 4, 128, True),
+]
 #: the two-layer moonshot card-against-CPU prompt, and its router's near tie:
 #: a token whose top-k sets differ fails unless the CPU's gap between its
 #: k-th and (k+1)-th probability is under this
@@ -2054,8 +2085,9 @@ def release(tag: str) -> None:
           f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved")
 
 
-def check_flash_families() -> tuple:
-    """The flash kernel at FLASH_FAMILY_CASES against its plain version in
+def check_flash_families(cases=None, seed: int = 200) -> tuple:
+    """The flash kernel at ``cases`` (FLASH_FAMILY_CASES by default; a
+    case's window None unless it names one) against its plain version in
     fp32 (1e-4) and bf16 (2e-3 + 2e-2·max|o_ref| of the row), then timed in
     bf16 beside its bound and scaled_dot_product_attention.  Returns (max
     |do|, a row per shape for the kernels line)."""
@@ -2064,33 +2096,36 @@ def check_flash_families() -> tuple:
     from repro_torch.kernels import flash_attention, ref
 
     max_err, rows = 0.0, []
-    for i, (name, B, S, T, H, Kv, d, causal) in enumerate(FLASH_FAMILY_CASES):
+    for i, case in enumerate(FLASH_FAMILY_CASES if cases is None else cases):
+        name, B, S, T, H, Kv, d, causal = case[:8]
+        window = case[8] if len(case) > 8 else None
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = flash_inputs(B, S, T, H, Kv, d, dtype, seed=200 + i)
-            o = flash_attention.flash_attention(q, k, v, causal=causal)
-            o_ref = ref.flash_attention_ref(q, k, v, causal=causal)
+            q, k, v = flash_inputs(B, S, T, H, Kv, d, dtype, seed=seed + i)
+            o = flash_attention.flash_attention(q, k, v, causal=causal, window=window)
+            o_ref = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
             err = (o.float() - o_ref.float()).abs().max().item()
             close, limit = flash_close(o, o_ref, dtype, True)
             ok = o.dtype == dtype and bool(torch.isfinite(o).all()) and close
-            print(f"[flash] {name}: {dtype} B={B} S={S} T={T} H={H} Kv={Kv} d={d} causal={causal}: "
+            print(f"[flash] {name}: {dtype} B={B} S={S} T={T} H={H} Kv={Kv} d={d} causal={causal} window={window}: "
                   f"max|do|={err:.3g} tol {limit} {'ok' if ok else 'MISMATCH'}")
             if not ok:
                 raise AssertionError(f"flash_attention disagrees with flash_attention_ref at {name} {dtype}")
             max_err = max(max_err, err)
             del o_ref
-        call = lambda: flash_attention.flash_attention(q, k, v, causal=causal)  # noqa: E731
+        call = lambda: flash_attention.flash_attention(q, k, v, causal=causal, window=window)  # noqa: E731
         ms = cuda_ms(call)
         dev = kernel_device_ms(call, ("flash_attention_wgmma_kernel",))["flash_attention_wgmma_kernel"]
-        plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal), reps=5)
-        lib = sdpa_call(q, k, v, None, causal)
+        plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal, window=window), reps=5)
+        lib = sdpa_call(q, k, v, window, causal)
         lib_err = (lib().transpose(1, 2).float() - call().float()).abs().max().item()
         if lib_err > 2e-2:
             raise AssertionError(f"the library yardstick computes another function at {name}: max|d|={lib_err:.3g}")
         library = cuda_ms(lib)
         lib_dev, ran = library_device_ms(lib)
-        bound, by = flash_bound(q, k, causal, None)
-        shape = f"{name}: B={B} S={S} T={T} H={H} Kv={Kv} d={d} causal={causal}"
+        bound, by = flash_bound(q, k, causal, window)
+        shape = f"{name}: B={B} S={S} T={T} H={H} Kv={Kv} d={d} causal={causal}" + (
+            f" window={window}" if window else "")
         print(f"[flash-time] bf16 {shape}: kernel {ms:.4f} ms per call (CUDA events), {dev:.4f} ms on the device "
               f"(profiler), plain {plain:.4f} ms, library scaled_dot_product_attention {library:.4f} ms per call "
               f"(CUDA events; max|d| vs kernel {lib_err:.3g}), bound {bound:.5f} ms ({by}); device {dev / bound:.2f}x "
@@ -2477,6 +2512,10 @@ def serve_new_families() -> int:
 # ---------------------------------------------------------------------------
 
 TRAIN_ARCH = "h2o-danube-1.8b"
+#: [train]'s and [remediation]'s depth, of danube's 24 layers at full width:
+#: 8 since slice 16 (24 before), so that their checkpoints move 7.2 GB of
+#: state, not 18.3 GB (each save and restore took 21-27 s at full depth)
+TRAIN_LAYERS = 8
 TRAIN_SEQ, TRAIN_BATCH = 1024, 4
 TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 4
 #: the step call that raises (an injected transient failure): the trainer
@@ -2492,6 +2531,13 @@ TRAIN_SERVE_LENS = (100, 512, 1024, 512)
 TRAIN_NEW_TOKENS = 8
 #: a kernel name part that marks a matrix product (cuBLAS / CUTLASS)
 MATMUL_KERNELS = ("gemm", "xmma", "nvjet", "cutlass", "sm90_")
+
+
+def train_config():
+    """[train]'s and [remediation]'s danube: full width, TRAIN_LAYERS layers."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
 
 
 def check_train_against_cpu() -> None:
@@ -2721,8 +2767,8 @@ def _profile_shares(model, trainer, tag: str = "train", ranges=None) -> None:
 
 
 def train_full_width() -> tuple:
-    """Full-width h2o-danube-1.8b (24 layers, bf16 weights, fp32 AdamW
-    moments) trained through ``Trainer`` for TRAIN_STEPS steps of
+    """Full-width h2o-danube-1.8b (TRAIN_LAYERS of its 24 layers, bf16
+    weights, fp32 AdamW moments) trained through ``Trainer`` for TRAIN_STEPS steps of
     TRAIN_BATCH x TRAIN_SEQ ``SyntheticPipeline`` tokens under a default-mode
     trace, checkpointing every TRAIN_CKPT_EVERY steps, the TRAIN_FAIL_AT-th
     step call failing once; then the checkpoint restored from disk into
@@ -2730,8 +2776,8 @@ def train_full_width() -> tuple:
     tokens each.  Gates: finite losses whose last two average below the
     first; the tally's framework rows (the replayed and failed steps, the
     saves and the restore); the checkpoint's weights equal the trained
-    state's bit for bit; 24 flash launches a prefill in serving, none in
-    decode.  Returns the flash launches and the loss of each step."""
+    state's bit for bit; a flash launch a layer a prefill in serving, none
+    in decode.  Returns the flash launches and the loss of each step."""
     import numpy as np
     import torch
 
@@ -2743,7 +2789,7 @@ def train_full_width() -> tuple:
     from repro_torch.models import Model, ShapeSpec
     from repro_torch.train import TrainConfig, Trainer, TrainerConfig
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = train_config()
     model = Model(cfg)
     shape = ShapeSpec("chip", "train", TRAIN_SEQ, TRAIN_BATCH)
     work = tempfile.mkdtemp(prefix="thapi_train_")
@@ -2754,10 +2800,10 @@ def train_full_width() -> tuple:
         t0 = time.perf_counter()
         trainer = Trainer(model, shape, DEVICE, TrainConfig(peak_lr=TRAIN_LR, warmup=2, total_steps=100),
                           TrainerConfig(steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY, ckpt_dir=ckpt_dir))
-        trainer.ckpt = Checkpointer(ckpt_dir, keep=1)  # one 18 GB restore point on disk at a time
+        trainer.ckpt = Checkpointer(ckpt_dir, keep=1)  # one restore point on disk at a time
         torch.cuda.synchronize()
         state_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(trainer.state))
-        print(f"[train] {cfg.name}: {cfg.num_layers} layers, {_numel(trainer.state['params'])} parameters, "
+        print(f"[train] {cfg.name}: {cfg.num_layers} of 24 layers, {_numel(trainer.state['params'])} parameters, "
               f"{cfg.dtype} weights, {trainer.tcfg.adamw.state_dtype} moments: state {state_bytes / 1e9:.2f} GB, "
               f"init {time.perf_counter() - t0:.1f} s; {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens")
         step, times, calls = trainer.step_fn, [], [0]
@@ -3234,7 +3280,7 @@ def drain_and_replace(train_losses: dict) -> None:
     from repro_torch.models import Model, ShapeSpec
     from repro_torch.train import TrainConfig, Trainer, TrainerConfig
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = train_config()
     model = Model(cfg)
     shape = ShapeSpec("chip", "train", TRAIN_SEQ, TRAIN_BATCH)
     work = tempfile.mkdtemp(prefix="thapi_remediation_")
@@ -3666,8 +3712,21 @@ MESH_CF = 8.0
 #: random init (10 % of the prefill's margins under 0.0114 of the spread)
 #: leaves 0.141 of the rows and positions unheld
 MESH_HOLD = {"fp32": (2e-5, 1e-4, 0.1), "bf16": (2e-2, 2e-2, 0.25)}
-#: h2o-danube-1.8b at full width, MESH_TRAIN_LAYERS of its 24 layers
+#: h2o-danube-1.8b at full width, MESH_TRAIN_LAYERS of its 24 layers, on
+#: these meshes (name, model_parallel): 2x2 since slice 14, 1x4 since 16
 MESH_TRAIN_LAYERS = 2
+MESH_TRAIN_MESHES = (("2x2", 2), ("1x4", 4))
+#: the largest |a rank's matrix FLOPs of a step / the one-rank step's - 1 /
+#: (data x model)| relative to 1 / (data x model): every product of the
+#: danube step (the projections, the attention over this rank's heads, the
+#: FFN and the vocabulary) splits over both axes, so the count is the
+#: share exactly unless a product is computed whole
+MESH_FLOPS_REL = 0.02
+#: (d): the meshed engine's danube depth in bf16 (fp32 runs 2 layers), its
+#: prompts and new tokens
+MESH_SERVE_LAYERS = 4
+MESH_SERVE_LENS = (100, 512, 1024, 256, 768, 1000)
+MESH_SERVE_NEW_TOKENS = 16
 MESH_TRAIN_SHAPE = (4, 1024)  # (rows, tokens) a step
 MESH_TRAIN_STEPS = 3
 #: |loss on the 2x2 mesh - loss of the one-rank step|, bf16 weights (the
@@ -3696,19 +3755,34 @@ def _mesh_sync() -> None:
     dist.barrier()
 
 
-def _served(full: dict, axes: dict, part, mesh) -> dict:
-    """Moonshot's weights as a meshed server holds them: each expert leaf
-    this rank's block under ``part``'s spec (not gathered at use), the rest
-    whole."""
-    from repro_torch.models import moe
-    from repro_torch.sharding import Placed, local_block
+def _served(cfg, full: dict, part):
+    """(the meshed model, moonshot's weights as it holds them): every leaf
+    this rank's block under ``part``'s spec (``artifacts.place_params``): the
+    experts reach the expert layer as blocks, the heads, KV heads and
+    vocabulary stay local where they divide."""
+    from repro_torch.models import Model
+    from repro_torch.serve.artifacts import place_params
 
-    blocks = dict(full["blocks"])
-    for k in moe.EXPERT_LEAVES:
-        w = full["blocks"][k]
-        spec = part.pspec(axes[k], tuple(w.shape))
-        blocks[k] = Placed(local_block(w, spec, mesh).clone(), spec, mesh, whole_at_use=False, stacked=True)
-    return {**full, "blocks": blocks}
+    model = Model(cfg, part.mesh)
+    return model, place_params(model, full, part)
+
+
+def _cache_spec(model, part, cache) -> dict:
+    """The spec of each leaf of a meshed cache (``artifacts.cache_specs``)."""
+    from repro_torch.models import ShapeSpec
+    from repro_torch.serve.artifacts import cache_specs
+
+    B, T = cache["len"].shape[0], cache["k"].shape[2]
+    n = math.prod(part.mesh.shape[a] for a in part.data_axes())
+    return cache_specs(model, part, ShapeSpec("mesh", "decode", T, B * n))
+
+
+def _cache_whole(model, part, cache) -> dict:
+    """A copy of a meshed cache, gathered whole from the ranks' blocks."""
+    from repro_torch.sharding import gather_whole
+
+    specs = _cache_spec(model, part, cache)
+    return {k: gather_whole(v, specs[k], part.mesh).clone() for k, v in cache.items()}
 
 
 def _mesh_serve(rank: int, cfg, full: dict, toks, dtoks, meshes: dict, res: dict, tag: str) -> dict:
@@ -3720,13 +3794,12 @@ def _mesh_serve(rank: int, cfg, full: dict, toks, dtoks, meshes: dict, res: dict
     import torch
 
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import Model
-    from repro_torch.sharding import Partitioner
+    from repro_torch.sharding import Partitioner, local_block
 
-    axes = Model(cfg).axes()["blocks"]
     m14, m22 = meshes["1x4"], meshes["2x2"]
-    p14 = _served(full, axes, Partitioner(m14, mode="tp"), m14)
-    p22 = _served(full, axes, Partitioner(m22, mode="serve2d"), m22)
+    t14, t22 = Partitioner(m14, mode="tp"), Partitioner(m22, mode="serve2d")
+    model14, p14 = _served(cfg, full, t14)
+    m2d, p22 = _served(dataclasses.replace(cfg, serve_2d=True), full, t22)
     B, S = toks.shape
     cache_len = S + MESH_DECODE_STEPS
     out: dict = {"launches": 0}
@@ -3734,25 +3807,27 @@ def _mesh_serve(rank: int, cfg, full: dict, toks, dtoks, meshes: dict, res: dict
         _mesh_sync()
         fa.launches = 0
         t0 = time.perf_counter()
-        logits, cache = Model(cfg, m14).prefill(p14, {"tokens": toks}, cache_len)
+        logits, cache = model14.prefill(p14, {"tokens": toks}, cache_len)
         torch.cuda.synchronize()
         out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
         out["launches"] = fa.launches
-        snap = {k: v.clone() for k, v in cache.items()}
+        out["snap"] = {k: v.clone() for k, v in cache.items()}  # this rank's KV heads
+        snap = _cache_whole(model14, t14, cache)
         out["prefill"] = logits
         out["decode_ms"], out["decode_2d_ms"] = [], []
         for i in range(MESH_DECODE_STEPS):
             _mesh_sync()
             t0 = time.perf_counter()
-            lg, cache = Model(cfg, m14).decode_step(p14, cache, {"token": dtoks[i]})
+            lg, cache = model14.decode_step(p14, cache, {"token": dtoks[i]})
             torch.cuda.synchronize()
             out["decode_ms"].append((time.perf_counter() - t0) * 1e3)
             out[f"decode{i}"] = lg.clone()
-        out["k"], out["v"] = cache["k"], cache["v"]
+        whole = _cache_whole(model14, t14, cache)
+        out["k"], out["v"] = whole["k"], whole["v"]
         d = m22.index("data")
         rows = slice(d * (B // 2), (d + 1) * (B // 2))
-        c22 = {k: (v[:, rows] if k != "len" else v[rows]).clone() for k, v in snap.items()}
-        m2d = Model(dataclasses.replace(cfg, serve_2d=True), m22)
+        spec22 = _cache_spec(m2d, t22, {k: (v[:, rows] if k != "len" else v[rows]) for k, v in snap.items()})
+        c22 = {k: local_block(v, spec22[k], m22).clone() for k, v in snap.items()}
         for i in range(MESH_DECODE_STEPS):
             _mesh_sync()
             t0 = time.perf_counter()
@@ -3760,9 +3835,9 @@ def _mesh_serve(rank: int, cfg, full: dict, toks, dtoks, meshes: dict, res: dict
             torch.cuda.synchronize()
             out["decode_2d_ms"].append((time.perf_counter() - t0) * 1e3)
             out[f"2d{i}"] = lg.clone()
-            torch.save({"logits": lg.cpu(), "k": c22["k"].cpu(), "v": c22["v"].cpu(), "rows": (rows.start, rows.stop)},
-                       os.path.join(res["dir"], f"{tag}_r{rank}_2d_{i}.pt"))
-        out["snap"] = snap
+            w22 = _cache_whole(m2d, t22, c22)
+            torch.save({"logits": lg.cpu(), "k": w22["k"][:, rows].cpu(), "v": w22["v"][:, rows].cpu(),
+                        "rows": (rows.start, rows.stop)}, os.path.join(res["dir"], f"{tag}_r{rank}_2d_{i}.pt"))
         out["p14"] = p14
     for name, t in out.items():
         if isinstance(t, torch.Tensor) and t.is_floating_point() and not torch.isfinite(t).all():
@@ -4014,23 +4089,24 @@ def _mesh_compressed_mean(rank: int, card: str, res: dict) -> None:
 
 
 def _mesh_train(rank: int, card: str, res: dict) -> None:
-    """(c): full-width danube at MESH_TRAIN_LAYERS layers trained on the 2x2
-    mesh in tp mode, each rank holding its blocks of the state, against the
-    one-rank step on rank 0."""
+    """(c): full-width danube at MESH_TRAIN_LAYERS layers trained on each of
+    MESH_TRAIN_MESHES in tp mode, each rank holding its blocks of the state
+    and computing its heads, FFN columns and vocabulary, against the
+    one-rank step on rank 0; then one more step under
+    ``launch.dryrun.Counter`` on each mesh and on one rank, whose matrix
+    FLOPs ``mesh_phase`` holds at 1/(data x model) of the one rank's."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.core.interception import nbytes_of
-    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.dryrun import Counter
+    from repro_torch.launch.mesh import describe, make_local_mesh
     from repro_torch.models import Model, ShapeSpec
     from repro_torch.optim import adamw_init
     from repro_torch.sharding import Partitioner
     from repro_torch.train.train_step import TrainConfig, build_train_step, init_state
 
     where = f"({card}; {MESH_RANKS} ranks sharing one card over gloo)"
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=MESH_TRAIN_LAYERS)
-    mesh = make_local_mesh(model_parallel=2)
-    part = Partitioner(mesh, mode="tp")
+    cfg = dataclasses.replace(train_config(), num_layers=MESH_TRAIN_LAYERS)
     B, S = MESH_TRAIN_SHAPE
     shape = ShapeSpec("mesh", "train", S, B)
     tcfg = TrainConfig(peak_lr=TRAIN_LR, warmup=2, total_steps=max(MESH_TRAIN_STEPS, 10))
@@ -4050,44 +4126,218 @@ def _mesh_train(rank: int, card: str, res: dict) -> None:
             losses.append(float(m["loss"]))
             gnorms.append(float(m["grad_norm"]))
             ms.append((time.perf_counter() - t0) * 1e3)
-        return state, step, losses, gnorms, ms
+        with Counter(batches[0]["tokens"].device) as c:  # untimed: the dispatch mode runs in Python
+            step(state, batches[0])
+        return state, step, losses, gnorms, ms, c.flops
 
-    state, step, losses, gnorms, ms = run(Model(cfg, mesh), part)
     meta = Model(cfg).shapes()
     whole = nbytes_of({"params": meta, "opt": adamw_init(meta, tcfg.adamw)})
-    if not all(map(math.isfinite, losses + gnorms)):
-        raise AssertionError(f"[mesh r{rank}] non-finite losses {losses} or grad norms {gnorms}")
-    _mesh_say(rank, f"danube at {MESH_TRAIN_LAYERS} of 24 layers, full width, mesh data=2xmodel=2 (tp), "
-                    f"{B} x {S} tokens a step: losses {', '.join(f'{x:.6f}' for x in losses)}; grad norms "
-                    f"{', '.join(f'{x:.6f}' for x in gnorms)}; steps "
-                    f"{', '.join(f'{t:.1f}' for t in ms)} ms {where}; state bytes on this rank {step.bytes_accessed:,} "
-                    f"of {whole:,} ({step.bytes_accessed / whole:.4f})")
-    if not step.bytes_accessed < whole:
-        raise AssertionError(f"[mesh r{rank}] this rank holds {step.bytes_accessed} bytes of a {whole}-byte state")
-    res["train"] = {"losses": losses, "grad_norms": gnorms, "ms": ms, "bytes": step.bytes_accessed, "whole": whole}
-    del state
+    res["train"] = {"whole": whole}
+    for tag, mp in MESH_TRAIN_MESHES:
+        mesh = make_local_mesh(model_parallel=mp)
+        state, step, losses, gnorms, ms, flops = run(Model(cfg, mesh), Partitioner(mesh, mode="tp"))
+        if not all(map(math.isfinite, losses + gnorms)):
+            raise AssertionError(f"[mesh r{rank}] non-finite losses {losses} or grad norms {gnorms} on {tag}")
+        _mesh_say(rank, f"danube at {MESH_TRAIN_LAYERS} of 24 layers, full width, mesh {describe(mesh)} (tp: this "
+                        f"rank's heads, FFN columns and vocabulary), {B} x {S} tokens a step: losses "
+                        f"{', '.join(f'{x:.6f}' for x in losses)}; grad norms {', '.join(f'{x:.6f}' for x in gnorms)}; "
+                        f"steps {', '.join(f'{t:.1f}' for t in ms)} ms {where}; state bytes on this rank "
+                        f"{step.bytes_accessed:,} of {whole:,} ({step.bytes_accessed / whole:.4f}); matrix FLOPs of "
+                        f"a step {flops:,}")
+        if not step.bytes_accessed < whole:
+            raise AssertionError(f"[mesh r{rank}] this rank holds {step.bytes_accessed} bytes of a {whole}-byte state")
+        res["train"][tag] = {"losses": losses, "grad_norms": gnorms, "ms": ms, "bytes": step.bytes_accessed,
+                             "flops": flops, "ranks": math.prod(mesh.shape.values())}
+        del state, step
+        torch.cuda.empty_cache()
+        _mesh_sync()
+    if rank == 0:
+        _, _, ref, ref_gn, ref_ms, ref_flops = run(Model(cfg), None)
+        res["train"]["one_rank"] = {"losses": ref, "grad_norms": ref_gn, "ms": ref_ms, "flops": ref_flops}
+        for tag, _ in MESH_TRAIN_MESHES:
+            got = res["train"][tag]
+            d = max(abs(a - b) for a, b in zip(got["losses"], ref))
+            dg = max(abs(a - b) / b for a, b in zip(got["grad_norms"], ref_gn))
+            print(f"[mesh] danube {tag} against the one-rank step: losses {', '.join(f'{x:.6f}' for x in ref)}, "
+                  f"max|d| {d:.3g}, limit {MESH_LOSS_LIMIT:g}; grad norms {', '.join(f'{x:.6f}' for x in ref_gn)}, "
+                  f"max|d|/ref {dg:.3g}, limit {MESH_GNORM_REL:g}; one-rank steps "
+                  f"{', '.join(f'{t:.1f}' for t in ref_ms)} ms alone on the card, matrix FLOPs of a step "
+                  f"{ref_flops:,} {where}", flush=True)
+            if not d <= MESH_LOSS_LIMIT:
+                raise AssertionError(f"[mesh] the {tag} danube step's losses differ from the one-rank step's by {d:.3g}")
+            if not dg <= MESH_GNORM_REL:
+                raise AssertionError(f"[mesh] the {tag} danube step's grad norms differ from the one-rank step's by "
+                                     f"{dg:.3g} of them")
     torch.cuda.empty_cache()
     _mesh_sync()
-    if rank == 0:
-        _, _, ref, ref_gn, ref_ms = run(Model(cfg), None)
-        d = max(abs(a - b) for a, b in zip(losses, ref))
-        dg = max(abs(a - b) / b for a, b in zip(gnorms, ref_gn))
-        print(f"[mesh] danube 2x2 against the one-rank step: losses {', '.join(f'{x:.6f}' for x in ref)}, max|d| "
-              f"{d:.3g}, limit {MESH_LOSS_LIMIT:g}; grad norms {', '.join(f'{x:.6f}' for x in ref_gn)}, max|d|/ref "
-              f"{dg:.3g}, limit {MESH_GNORM_REL:g}; one-rank steps {', '.join(f'{t:.1f}' for t in ref_ms)} ms "
-              f"alone on the card {where}", flush=True)
-        if not d <= MESH_LOSS_LIMIT:
-            raise AssertionError(f"[mesh] the 2x2 danube step's losses differ from the one-rank step's by {d:.3g}")
-        if not dg <= MESH_GNORM_REL:
-            raise AssertionError(f"[mesh] the 2x2 danube step's grad norms differ from the one-rank step's by "
-                                 f"{dg:.3g} of them")
-        res["train"]["ref"], res["train"]["ref_grad_norms"] = ref, ref_gn
-    _mesh_sync()
+
+
+def _engine_run(model, params, part, prompts, cache_len: int) -> dict:
+    """``ServeEngine`` (with ``part``, or one rank without) over ``prompts``:
+    each request's tokens, the logits that chose each of them (its prefill's,
+    then its row of each decode step's), the prefill and decode-step times
+    (synchronized), the flash launches, the cache's K and V bytes on this
+    rank and the engine's note on its decode step.  Without ``part`` the
+    engine's decode step is the model's eager ``decode_step``, not its CUDA
+    graph: the meshed engine over gloo steps eagerly, and the held
+    difference is then the mesh's alone (a graph's replay may take other
+    cuBLAS algorithms, ``GRAPH_TOL``)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    eng = ServeEngine(model, params, ServeConfig(batch_slots=4, cache_len=cache_len,
+                                                 max_new_tokens=MESH_SERVE_NEW_TOKENS), partitioner=part)
+    rows = {}  # rid -> the logits rows that chose its tokens, in order
+    times = {"prefill": [], "decode": []}
+    decode = eng._decode if part is not None else model.decode_step
+
+    def timed(kind, fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        times[kind].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def dec(*a):
+        logits, cache = timed("decode", decode, *a)
+        for i, r in enumerate(eng.slots):
+            if r is not None:
+                rows[r.rid].append(logits[i, 0, : model.cfg.vocab_size].float().cpu())
+        return logits, cache
+
+    class Prefills(dict):
+        def __setitem__(self, key, step):
+            def run(p, b):
+                out = timed("prefill", step, p, b)
+                rows[len(rows)] = [out[0][0, 0, : model.cfg.vocab_size].float().cpu()]
+                return out
+
+            super().__setitem__(key, run)
+
+    eng._decode = dec
+    eng._prefill_steps = Prefills()
+    reqs = [eng.submit(p) for p in prompts]
+    fa.launches = 0
+    with torch.no_grad():
+        eng.run_until_drained()
+    torch.cuda.synchronize()
+    kv = sum(eng.cache[k].numel() * eng.cache[k].element_size() for k in ("k", "v"))
+    spec = eng._cache_specs["k"] if part is not None else None
+    return {"tokens": [r.out_tokens for r in reqs], "rows": [rows[r.rid] for r in reqs], "times": times,
+            "launches": fa.launches, "kv_bytes": kv, "note": eng.decode_note,
+            "kv_shape": tuple(eng.cache["k"].shape), "kv_spec": spec,
+            "kv_blocks": math.prod(part.mesh.shape[a] for a in spec.mesh_axes()) if spec is not None else 1}
+
+
+def _engine_hold(tag: str, mesh_tag: str, got: dict, ref: dict, where: str) -> dict:
+    """Rank 0: the meshed engine's logits against the one-rank engine's,
+    request by request: max|d| / max|ref| of each row that chose a token
+    while the two had chosen the same tokens so far; a token that differs
+    is a flip, counted, and held to be a near tie (the reference's margin
+    between the two tokens under twice the limit times max|ref| of the
+    row), after which the request is not held.  bf16 logits tie often: the
+    top two of 32,000 random-init logits lie within a bf16 rounding of each
+    other at a good share of the tokens."""
+    limit = MESH_HOLD[tag][0]
+    worst, flips, held, first = 0.0, [], 0, 0.0
+    for i, (a_rows, b_rows) in enumerate(zip(got["rows"], ref["rows"], strict=True)):
+        ta, tb = got["tokens"][i], ref["tokens"][i]
+        for j, (a, b) in enumerate(zip(a_rows, b_rows)):
+            scale = float(b.abs().max())
+            rel = float((a - b).abs().max()) / scale
+            worst = max(worst, rel)
+            first = max(first, rel) if j == 0 else first
+            held += 1
+            if ta[j] != tb[j]:
+                margin = float(b[tb[j]] - b[ta[j]])
+                flips.append((i, j, margin / scale))
+                if margin > 2 * limit * scale:
+                    raise AssertionError(f"[mesh] {mesh_tag} engine ({tag}) request {i} token {j}: {ta[j]} where one "
+                                         f"rank chose {tb[j]}, margin {margin / scale:.3g} of max|logit|: no near tie")
+                break
+    print(f"[mesh] danube engine {mesh_tag} against the one-rank engine (eager decode), {tag}: logits max|d|/max|ref| "
+          f"{worst:.3g} over {held} rows, the prefills' {first:.3g} (limit {limit:g}); tokens identical for {len(ref['tokens']) - len(flips)} of "
+          f"{len(ref['tokens'])} requests" + (f", flips at near ties (request, token, margin/max|logit|) {flips}"
+                                                   if flips else "") + f" {where}", flush=True)
+    if not worst <= limit:
+        raise AssertionError(f"[mesh] the {mesh_tag} engine's logits ({tag}) differ from one rank's by {worst:.3g}")
+    if tag == "fp32" and flips:
+        raise AssertionError(f"[mesh] the {mesh_tag} engine's fp32 tokens differ from one rank's: {flips}")
+    return {"rel": worst, "flips": len(flips)}
+
+
+def _mesh_engine(rank: int, card: str, res: dict) -> None:
+    """(d): ``ServeEngine(..., partitioner=...)`` on full-width danube on the
+    1x4 and 2x2 meshes, MESH_SERVE_LENS prompts, 4 slots: in fp32 at 2
+    layers and in bf16 at MESH_SERVE_LAYERS, held against the one-rank
+    engine on rank 0 (``_engine_hold``); per rank, flash a layer a prefill
+    and the cache's K and V the rank's share of the one-rank cache's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import describe, make_local_mesh
+    from repro_torch.models import Model
+    from repro_torch.sharding import Partitioner
+
+    where = f"({card}; {MESH_RANKS} ranks sharing one card over gloo)"
+    rng = np.random.default_rng(MESH_SEED)
+    base = train_config()
+    prompts = [rng.integers(0, base.vocab_size, size=n).astype(np.int32) for n in MESH_SERVE_LENS]
+    cache_len = max(MESH_SERVE_LENS) + MESH_SERVE_NEW_TOKENS
+    res["engine"] = {}
+    for tag, dtype, layers in (("fp32", "float32", 2), ("bf16", "bfloat16", MESH_SERVE_LAYERS)):
+        cfg = dataclasses.replace(base, num_layers=layers, dtype=dtype)
+        full = Model(cfg).init(torch.Generator(device=DEVICE).manual_seed(MESH_SEED))
+        eff = cache_len if cfg.sliding_window is None else min(cache_len, cfg.sliding_window)
+        whole_kv = 2 * layers * 4 * eff * cfg.padded_kv_heads * cfg.head_dim_ * full["embed"]["tok"].element_size()
+        runs = {}
+        for mesh_tag, mp in MESH_TRAIN_MESHES:
+            part = Partitioner(make_local_mesh(model_parallel=mp))
+            _mesh_sync()
+            out = runs[mesh_tag] = _engine_run(Model(cfg), full, part, prompts, cache_len)
+            mesh = part.mesh
+            n = out["kv_blocks"]  # the slots over "data", the KV heads over "model" where they divide
+            t_p, t_d = out["times"]["prefill"], out["times"]["decode"]
+            _mesh_say(rank, f"engine {tag}, danube at {layers} of 24 layers, full width, mesh {describe(mesh)}: "
+                            f"{len(prompts)} requests of {min(MESH_SERVE_LENS)}-{max(MESH_SERVE_LENS)} tokens, "
+                            f"{MESH_SERVE_NEW_TOKENS} new tokens each, 4 slots; prefills "
+                            f"{', '.join(f'{t:.1f}' for t in t_p)} ms; {len(t_d)} decode steps, median "
+                            f"{sorted(t_d)[len(t_d) // 2]:.1f} ms (range {min(t_d):.1f}-{max(t_d):.1f}); flash "
+                            f"{out['launches']} launches; cache K+V on this rank {out['kv_bytes']:,} bytes "
+                            f"{out['kv_shape']}, spec {out['kv_spec']}, of {whole_kv:,} "
+                            f"({out['kv_bytes'] / whole_kv:.4f}); decode: {out['note']} {where}")
+            if out["launches"] != layers * len(prompts):
+                raise AssertionError(f"[mesh r{rank}] engine {tag} {mesh_tag}: flash launched {out['launches']} times, "
+                                     f"want {layers} x {len(prompts)} prefills")
+            model_split = cfg.padded_kv_heads % mp == 0
+            if out["kv_bytes"] * n != whole_kv or model_split != ("model" in out["kv_spec"].mesh_axes()):
+                raise AssertionError(f"[mesh r{rank}] engine {tag} {mesh_tag}: this rank's K and V take "
+                                     f"{out['kv_bytes']} bytes under {out['kv_spec']}, not 1/{n} of {whole_kv}")
+            res["engine"][f"{tag} {mesh_tag}"] = {"tokens": out["tokens"], "prefill_ms": t_p, "decode_ms": t_d,
+                                                  "launches": out["launches"], "kv_bytes": out["kv_bytes"]}
+        _mesh_sync()
+        if rank == 0:
+            ref = _engine_run(Model(cfg), full, None, prompts, cache_len)
+            t_d = ref["times"]["decode"]
+            print(f"[mesh] one-rank danube engine {tag}, {layers} layers: prefills "
+                  f"{', '.join(f'{t:.1f}' for t in ref['times']['prefill'])} ms; decode steps (eager) median "
+                  f"{sorted(t_d)[len(t_d) // 2]:.1f} ms alone on the card {where}", flush=True)
+            for mesh_tag, out in runs.items():
+                res["engine"][f"{tag} {mesh_tag}"].update(_engine_hold(tag, mesh_tag, out, ref, where))
+            res["engine"][f"{tag} one-rank"] = {"tokens": ref["tokens"], "prefill_ms": ref["times"]["prefill"],
+                                                "decode_ms": t_d}
+            del ref
+        del full, runs
+        torch.cuda.empty_cache()
+        _mesh_sync()
 
 
 def mesh_rank(argv) -> int:
     """One rank of [mesh] (``chip_smoke.py --mesh-rank RANK STORE DIR CARD``):
-    joins the gloo group over the FileStore, runs (a)-(c), writes its
+    joins the gloo group over the FileStore, runs (a)-(d), writes its
     readings to DIR/rank<RANK>.json."""
     import torch
     import torch.distributed as dist
@@ -4100,6 +4350,7 @@ def mesh_rank(argv) -> int:
     _mesh_moonshot(rank, card, res)
     _mesh_compressed_mean(rank, card, res)
     _mesh_train(rank, card, res)
+    _mesh_engine(rank, card, res)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     dist.barrier()
@@ -4151,17 +4402,36 @@ def _run_ranks(tag: str, flag: str, work: str, card: str, timeout_s: float) -> l
 def mesh_phase() -> int:
     """[mesh]: MESH_RANKS processes on the one card, a gloo group over a
     FileStore in a temporary directory; every rank's exit code checked and
-    the phase bounded by MESH_TIMEOUT_S.  Returns the meshed prefills'
-    flash_attention launches summed over the ranks."""
+    the phase bounded by MESH_TIMEOUT_S.  Gates across the ranks: (c)'s
+    matrix FLOPs on every rank at 1/(data x model) of the one rank's within
+    MESH_FLOPS_REL, (d)'s tokens the same on every rank.  Returns the
+    meshed prefills' flash_attention launches summed over the ranks."""
     release("before [mesh]")
     work = tempfile.mkdtemp(prefix="thapi_mesh_")
+    card = card_line()
+    where = f"({card}; {MESH_RANKS} ranks sharing one card over gloo)"
     try:
-        res = _run_ranks("mesh", "--mesh-rank", work, card_line(), MESH_TIMEOUT_S)
+        res = _run_ranks("mesh", "--mesh-rank", work, card, MESH_TIMEOUT_S)
+        ref = res[0]["train"]["one_rank"]["flops"]
+        for tag, _ in MESH_TRAIN_MESHES:
+            got = [x["train"][tag] for x in res]
+            n = got[0]["ranks"]
+            rel = [abs(g["flops"] / ref * n - 1) for g in got]
+            print(f"[mesh] danube {tag}: matrix FLOPs of a step per rank {[g['flops'] for g in got]} against "
+                  f"{ref:,} on one rank: x {n} = {[round(g['flops'] * n / ref, 6) for g in got]} of it (limit "
+                  f"{MESH_FLOPS_REL:g} off 1); state bytes per rank {[g['bytes'] for g in got]} of "
+                  f"{res[0]['train']['whole']:,} {where}")
+            if max(rel) > MESH_FLOPS_REL:
+                raise AssertionError(f"[mesh] a rank's {tag} step counts {max(rel):.3g} off 1/{n} of the one-rank FLOPs")
+        for key in res[0]["engine"]:
+            if "one-rank" not in key and any(x["engine"][key]["tokens"] != res[0]["engine"][key]["tokens"] for x in res):
+                raise AssertionError(f"[mesh] the ranks' engines ({key}) ended with different tokens")
         n = sum(x["flash_launches"] for x in res)
-        print(f"[mesh] flash_attention launches {n} = {MESH_LAYERS} layers x 4 meshed prefills x {MESH_RANKS} ranks "
-              f"(none in decode); danube state bytes per rank {[x['train']['bytes'] for x in res]} of "
-              f"{res[0]['train']['whole']}")
-        return n
+        e = sum(v["launches"] for x in res for k, v in x["engine"].items() if "one-rank" not in k)
+        print(f"[mesh] flash_attention launches {n} = {MESH_LAYERS} layers x 4 meshed moonshot prefills x "
+              f"{MESH_RANKS} ranks, and {e} = (2 + {MESH_SERVE_LAYERS}) layers x {len(MESH_SERVE_LENS)} prefills x "
+              f"{len(MESH_TRAIN_MESHES)} meshes x {MESH_RANKS} ranks in the meshed engines (none in decode) {where}")
+        return n + e
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4636,6 +4906,9 @@ def main(argv=()) -> int:
     timed("remediation", remediation_phase, train_losses)
     for name, n in timed("dryrun", dryrun_phase).items():
         launches[name] += n
+    err, rows = timed("flash-local", check_flash_families, FLASH_LOCAL_CASES, 300)
+    flash["max_abs_err"] = max(flash["max_abs_err"], err)
+    flash["shapes"] += rows
     launches["flash_attention"] += timed("mesh", mesh_phase)
     launches["flash_attention"] += timed("mesh-ckpt", mesh_ckpt_phase)
     print(f"[time] the phases: {'; '.join(f'{k} {v:.1f} s' for k, v in seconds.items())}; all "

@@ -8,6 +8,17 @@ the QKᵀ and PV products run in the input dtype, the softmax, RoPE and the
 loss in fp32.  Every function here is plain PyTorch, so autograd
 differentiates it: training runs ``attend_cfg`` as the JAX package's
 ``forward_train`` does, and no kernel.
+
+On a mesh (``mesh``) a layer may hold this rank's block of its heads, KV
+heads, FFN columns or vocabulary (``sharding.placement``: the leaves the
+partitioner splits over "model"); each function reads the split from the
+block's size against the config's and computes its own share: local heads
+(``kv_for_heads`` picks the KV heads their groups read), a ``psum`` over
+"model" after ``wo`` and ``w_down``, a masked local lookup and a ``psum``
+for the embedding, local vocabulary columns from ``unembed`` and a
+vocabulary-parallel log-sum-exp in ``xent_loss``.  A leaf that was not split
+is whole on every rank, and the function computes it whole, as on one
+device.
 """
 
 from __future__ import annotations
@@ -20,7 +31,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.placement import Placed
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.placement import Placed, block_range
 
 from .config import ModelConfig
 from .param import Spec
@@ -209,6 +221,35 @@ def attend_chunked(
     return out.movedim(3, 1).reshape(B, S, H, hd)
 
 
+def kv_for_heads(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh=None):
+    """K and V for this rank's query heads ``q [B, S, Hl, hd]``, laid out so
+    that local query head i reads KV head ``i // (Hl / Kv')`` of the result,
+    the contiguous GQA grouping of ``attend`` and the flash kernel: the global
+    query head h reads global KV head ``h // (H / Kv)``.  ``k`` and ``v``
+    hold the rank's block of the KV heads, or all of them where "kv_heads"
+    was not split (then a slice, a view, or where the local heads' groups
+    are uneven one KV head per query head).  Unsplit heads pass as they
+    are."""
+    H, Kv = cfg.padded_heads, cfg.padded_kv_heads
+    Hl, Kvl = q.shape[2], k.shape[2]
+    if Hl == H:
+        return k, v
+    h0, _ = block_range(H, Hl, mesh)
+    kv0, _ = block_range(Kv, Kvl, mesh)
+    G = H // Kv
+    first = h0 // G - kv0
+    if Hl % G == 0 and h0 % G == 0:
+        n = Hl // G
+    elif G % Hl == 0:  # every local head in one group: h0 is a multiple of Hl
+        n = 1
+    else:
+        idx = torch.div(torch.arange(h0, h0 + Hl, device=k.device), G, rounding_mode="floor") - kv0
+        return k.index_select(2, idx), v.index_select(2, idx)
+    if first == 0 and n == Kvl:
+        return k, v
+    return k.narrow(2, first, n), v.narrow(2, first, n)
+
+
 def attend_cfg(cfg: ModelConfig, q, k, v, *, causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
     """Train attention by the config, as the JAX ``attend_cfg``: blocked when
     ``attn_impl`` is ``"chunked"`` and the keys outnumber ``attn_chunk``,
@@ -249,8 +290,17 @@ def qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: Optional[torch.Te
     return q, k, v
 
 
-def attn_out(p: dict, ctx: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bshk,hkd->bsd", ctx, p["wo"])
+def _psum_split(y: torch.Tensor, local: int, whole: int, mesh) -> torch.Tensor:
+    """``y`` summed over "model" when it is a partial product over a block of
+    ``local`` of ``whole`` (the row-parallel product of a split leaf)."""
+    return C.psum(y, mesh, "model") if mesh is not None and local < whole else y
+
+
+def attn_out(p: dict, ctx: torch.Tensor, cfg: Optional[ModelConfig] = None, mesh=None) -> torch.Tensor:
+    """The output projection; over this rank's heads on a ``mesh``, summed
+    over "model"."""
+    y = torch.einsum("bshk,hkd->bsd", ctx, p["wo"])
+    return y if cfg is None else _psum_split(y, ctx.shape[2], cfg.padded_heads, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -276,15 +326,19 @@ def mlp_specs(cfg: ModelConfig, stacked: Optional[int] = None) -> dict:
     }
 
 
-def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor, mesh=None) -> torch.Tensor:
     """SwiGLU, GeGLU, or (any other ``mlp_type``, as in the JAX package) the
     non-gated GELU MLP with biases.  ``jax.nn.gelu`` is the tanh
-    approximation by default."""
+    approximation by default.  On a ``mesh`` over this rank's FFN columns,
+    the down projection summed over "model" (the bias added once, after)."""
     if cfg.mlp_type == "swiglu":
-        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
-    if cfg.mlp_type == "geglu":
-        return (F.gelu(x @ p["w_gate"], approximate="tanh") * (x @ p["w_up"])) @ p["w_down"]
-    return F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh") @ p["w_down"] + p["b_down"]
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    elif cfg.mlp_type == "geglu":
+        h = F.gelu(x @ p["w_gate"], approximate="tanh") * (x @ p["w_up"])
+    else:
+        h = F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh")
+    y = _psum_split(h @ p["w_down"], h.shape[-1], cfg.d_ff, mesh)
+    return y + p["b_down"] if "b_down" in p else y
 
 
 # ---------------------------------------------------------------------------
@@ -337,25 +391,58 @@ def embed_specs(cfg: ModelConfig) -> dict:
     return s
 
 
-def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens]
+def embed(p: dict, tokens: torch.Tensor, cfg: Optional[ModelConfig] = None, mesh=None) -> torch.Tensor:
+    """The rows of ``tokens``; over this rank's vocabulary rows on a
+    ``mesh``, zeros for the others, summed over "model" (one rank adds
+    each row, so the sum is the row, exactly)."""
+    tok = p["tok"]
+    if cfg is None or tok.shape[0] == cfg.padded_vocab:
+        return tok[tokens]
+    v0, n = block_range(cfg.padded_vocab, tok.shape[0], mesh)
+    rel = tokens.long() - v0
+    mine = (rel >= 0) & (rel < n)
+    x = tok[torch.where(mine, rel, 0)] * mine[..., None].to(tok.dtype)
+    return C.psum(x, mesh, "model")
 
 
 def unembed(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Logits over the vocabulary columns this rank holds (all of them
+    unless the vocabulary is split)."""
     if cfg.tied_embeddings:
         return x @ p["tok"].T
     return x @ p["head"]
 
 
-def xent_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def gather_vocab(cfg: ModelConfig, logits: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Logits over the whole vocabulary from this rank's columns (serving's
+    argmax reads them whole, as the JAX step returns them unsharded)."""
+    if mesh is None or logits.shape[-1] == cfg.padded_vocab:
+        return logits
+    return C.all_gather(logits, mesh, "model", dim=logits.ndim - 1)
+
+
+def xent_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor, mesh=None) -> torch.Tensor:
     """Mean cross-entropy over the real vocabulary: the padded columns are
-    set to -1e30 in the logits' dtype, then logsumexp in fp32."""
+    set to -1e30 in the logits' dtype, then logsumexp in fp32.  Over this
+    rank's vocabulary columns on a ``mesh`` (a column's padding decided by
+    its global index): the log-sum-exp from the ``pmax`` of the rows' maxima
+    and the ``psum`` of their shifted sums, the gold logit from the rank
+    that holds it, by a ``psum``."""
     V = cfg.vocab_size
     logits = logits[..., : cfg.padded_vocab]
-    if logits.shape[-1] > V:
-        pad = torch.arange(logits.shape[-1], device=logits.device) >= V
+    v0, n = block_range(cfg.padded_vocab, logits.shape[-1], mesh)
+    if v0 + n > V:
+        pad = torch.arange(v0, v0 + n, device=logits.device) >= V
         logits = logits.masked_fill(pad, -1e30)
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if n == cfg.padded_vocab:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        return torch.mean(logz - gold)
+    top = C.pmax(logits.detach().amax(dim=-1), mesh, "model")
+    logz = top + torch.log(C.psum(torch.exp(logits - top[..., None]).sum(dim=-1), mesh, "model"))
+    rel = labels.long() - v0
+    mine = (rel >= 0) & (rel < n)
+    gold = torch.gather(logits, -1, torch.where(mine, rel, 0)[..., None])[..., 0]
+    gold = C.psum(torch.where(mine, gold, 0.0), mesh, "model")
     return torch.mean(logz - gold)

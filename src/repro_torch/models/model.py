@@ -13,11 +13,15 @@
 
 Training covers the dense, VLM, MoE and audio families, whose JAX
 ``forward_train`` runs no Pallas kernel.  On a ``mesh``
-(``launch.mesh.Mesh``) the MoE family routes tokens to expert shards over
-its "model" axis (``moe.moe_ffn``'s expert-parallel paths) and the others
-run as on one device; the parameters may then be ``sharding.Placed``
-blocks, each gathered whole where a block uses it (the MoE experts stay
-blocks).  Batch inputs are this rank's rows.  ``logits`` refuses the SSM and
+(``launch.mesh.Mesh``) the parameters may be ``sharding.Placed`` blocks.
+The dense, VLM and MoE families compute this rank's heads, KV heads, FFN
+columns and vocabulary where those leaves are split over "model"
+(``keep_local``: at use they stay the rank's blocks, and ``loss`` takes a
+vocabulary-parallel cross-entropy), and the MoE family routes tokens to
+expert shards over "model" (``moe.moe_ffn``'s expert-parallel paths; the
+experts reach it as blocks).  The audio, SSM and hybrid families gather
+every leaf whole at use and compute as on one device (ROADMAP item 5b).
+Batch inputs are this rank's rows.  ``logits`` refuses the SSM and
 hybrid families, whose kernels have no backward, naming the ROADMAP entry
 for each.  The MoE family's loss adds ``aux_loss_weight`` times its
 load-balance term, as the JAX package's does.
@@ -30,7 +34,7 @@ import torch
 from . import encdec, hybrid, moe, ssm, transformer
 from .config import ModelConfig, ShapeSpec
 from .layers import xent_loss
-from repro_torch.sharding.placement import at_use
+from repro_torch.sharding.placement import BLOCK_AXES, TENSOR_PARALLEL, at_use
 
 from .param import Spec
 from .param import axes as spec_axes
@@ -42,6 +46,9 @@ _NOT_TRAINED = {
     "ssm": "ROADMAP section 4, open question: the SSD kernel has no backward, in JAX as here",
     "hybrid": "ROADMAP section 4, open question: the RG-LRU kernel has no backward, in JAX as here",
 }
+
+#: the families whose layers compute this rank's share of a split leaf
+_TENSOR_PARALLEL = ("dense", "vlm", "moe")
 
 _FAMILY = {
     "ssm": ssm,
@@ -58,11 +65,25 @@ class Model:
         self.cfg = cfg
         self.mesh = mesh
         self.mod = _FAMILY[cfg.family]
-        #: the mesh, for the one family whose functions take it
-        self._mesh_kw = {"mesh": mesh} if cfg.family == "moe" else {}
-        #: the leaves a block takes as this rank's block, not gathered whole
-        #: (the MoE experts, which ``moe_ffn`` reshards to its path's spec)
-        self.keep_local = self.mod.EXPERT_LEAVES if cfg.family == "moe" else ()
+        tensor_parallel = cfg.family in _TENSOR_PARALLEL
+        #: the mesh, for the families whose functions take it
+        self._mesh_kw = {"mesh": mesh} if tensor_parallel else {}
+        #: the logical axes whose split a block keeps at use (``sharding.place``):
+        #: its heads, KV heads, FFN columns and vocabulary where the model's
+        #: own mesh splits them ("model" > 1; a model without one gathers them
+        #: whole), and the MoE experts, which ``moe_ffn`` reshards to its
+        #: path's spec
+        split = tensor_parallel and mesh is not None and mesh.shape.get("model", 1) > 1
+        self.keep_local = (TENSOR_PARALLEL if split else ()) + (BLOCK_AXES if cfg.family == "moe" else ())
+
+    def on_mesh(self, mesh) -> "Model":
+        """This model for blocks placed on ``mesh``: itself where it is on
+        ``mesh`` (or has no mesh and ``mesh`` has one rank), else the same
+        configuration on ``mesh``, whose layers compute and sum the blocks
+        they hold there."""
+        if self.mesh is mesh or (self.mesh is None and mesh.size == 1):
+            return self
+        return Model(self.cfg, mesh)
 
     # -- parameters ------------------------------------------------------------
     def param_specs(self) -> dict:
@@ -89,13 +110,14 @@ class Model:
             )
 
     def logits(self, params: dict, batch: dict):
-        """(logits, auxiliary loss) over the whole sequence: the MoE family's
-        load-balance term, an fp32 zero for the others."""
+        """(logits, auxiliary loss) over the whole sequence (the logits over
+        this rank's vocabulary columns where the vocabulary is split): the
+        MoE family's load-balance term, an fp32 zero for the others."""
         self.check_trainable()
         params = at_use(params, top=True)
         if self.cfg.family == "moe":
             return self.mod.forward_train(self.cfg, params, batch, **self._mesh_kw)
-        out = self.mod.forward_train(self.cfg, params, batch)
+        out = self.mod.forward_train(self.cfg, params, batch, **self._mesh_kw)
         return out, torch.zeros((), dtype=torch.float32, device=out.device)
 
     def loss(self, params: dict, batch: dict):
@@ -105,7 +127,7 @@ class Model:
         logits, aux = self.logits(params, batch)
         if self.cfg.vision_tokens:
             logits = logits[:, self.cfg.vision_tokens :]
-        ce = xent_loss(self.cfg, logits, batch["labels"])
+        ce = xent_loss(self.cfg, logits, batch["labels"], self._mesh_kw.get("mesh"))
         total = ce
         if self.cfg.family == "moe":
             total = ce + self.cfg.moe.aux_loss_weight * aux

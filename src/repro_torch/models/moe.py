@@ -35,6 +35,9 @@ the assignments that the JAX package's out-of-bounds scatter drops are
 dropped (``kept_assignments`` says which, for a caller that counts them).
 The aux term is each shard's estimate under a mean over every axis, as in
 JAX.  A "model" axis over 1 on a mesh with no process group raises.
+Around the expert layer the block's attention, embedding and unembedding
+are the dense family's, on this rank's heads and vocabulary where those
+leaves are split (``transformer``).
 """
 
 from __future__ import annotations
@@ -62,10 +65,6 @@ from .layers import (
     unembed,
 )
 from .param import Spec
-
-
-#: the expert weights: on a mesh they stay this rank's blocks at use
-EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
 
 def specs(cfg: ModelConfig) -> dict:
@@ -438,12 +437,13 @@ def _moe_mlp(cfg: ModelConfig, pl: dict, h: torch.Tensor, mesh=None) -> torch.Te
 
 def block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor, mesh=None):
     """The dense training block with the expert layer: (x, aux)."""
-    return transformer.block(cfg, p, x, positions, ffn=_ffn(mesh))
+    return transformer.block(cfg, p, x, positions, ffn=_ffn(mesh), mesh=mesh)
 
 
 def forward_train(cfg: ModelConfig, params: dict, batch: dict, mesh=None):
-    """(logits ``[B, S, padded_vocab]``, the layers' mean load-balance loss)."""
-    x = embed(params["embed"], batch["tokens"])
+    """(logits ``[B, S, padded_vocab]`` (this rank's vocabulary columns on a
+    ``mesh``), the layers' mean load-balance loss)."""
+    x = embed(params["embed"], batch["tokens"], cfg, mesh)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     body = transformer._remat(cfg, lambda pl, h: block(cfg, pl, h, positions, mesh))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -461,10 +461,10 @@ def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
 def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int, mesh=None):
     """Run the prompt; returns last-position logits and a filled KV cache."""
     mlp = _moe_mlp if mesh is None else functools.partial(_moe_mlp, mesh=mesh)
-    return transformer.prefill(cfg, params, batch, cache_len, mlp=mlp)
+    return transformer.prefill(cfg, params, batch, cache_len, mlp=mlp, mesh=mesh)
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict, mesh=None):
     """One new token; writes the cache it is handed in place and returns it."""
     mlp = _moe_mlp if mesh is None else functools.partial(_moe_mlp, mesh=mesh)
-    return transformer.decode_step(cfg, params, cache, batch, mlp=mlp)
+    return transformer.decode_step(cfg, params, cache, batch, mlp=mlp, mesh=mesh)

@@ -25,6 +25,13 @@ The cache holds ``eff = min(cache_len, window)`` rows per layer (a ring
 under a sliding window): prefill keeps the last ``eff`` post-RoPE keys and
 values, rolled so that position ``p`` sits at row ``p % eff``, or fills rows
 ``[0, S)`` and zeros the rest when the prompt is shorter.
+
+On a ``mesh`` every function takes the blocks of the split leaves
+(``sharding.at_use``) and computes this rank's heads, KV heads, FFN
+columns and vocabulary, as GSPMD partitions the JAX step (``layers``): the
+prefill hands the flash kernel the rank's query heads with the KV heads
+their groups read, the cache holds the rank's KV heads, and the serving
+logits are gathered whole over "model".
 """
 
 from __future__ import annotations
@@ -40,6 +47,8 @@ from repro_torch.sharding.placement import at_use
 from .config import ModelConfig
 from .layers import (
     apply_mlp,
+    gather_vocab,
+    kv_for_heads,
     apply_norm,
     attend,
     attend_cfg,
@@ -118,40 +127,43 @@ def _remat(cfg: ModelConfig, fn):
     return fn
 
 
-def _dense_ffn(cfg: ModelConfig, p: dict, h: torch.Tensor):
-    return apply_mlp(cfg, p["mlp"], h), None
+def _dense_ffn(cfg: ModelConfig, p: dict, h: torch.Tensor, mesh=None):
+    return apply_mlp(cfg, p["mlp"], h, mesh), None
 
 
-def block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor, ffn=_dense_ffn):
+def block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor, ffn=None, mesh=None):
     """One training block: returns (x, aux).  ``ffn(cfg, p, h) -> (y, aux)``
-    is its feed-forward: the SwiGLU MLP (aux None), or the MoE family's
-    expert layer with its load-balance loss."""
+    is its feed-forward: the SwiGLU MLP (aux None; the default), or the MoE
+    family's expert layer with its load-balance loss."""
     p = at_use(p)
     h = apply_norm(cfg, p["ln1"], x)
     q, k, v = qkv(cfg, p["attn"], h, positions)
+    k, v = kv_for_heads(cfg, q, k, v, mesh)
     ctx = attend_cfg(cfg, q, k, v, causal=True, window=cfg.sliding_window)
-    x = x + attn_out(p["attn"], ctx)
-    y, aux = ffn(cfg, p, apply_norm(cfg, p["ln2"], x))
+    x = x + attn_out(p["attn"], ctx, cfg, mesh)
+    h = apply_norm(cfg, p["ln2"], x)
+    y, aux = _dense_ffn(cfg, p, h, mesh) if ffn is None else ffn(cfg, p, h)
     return x + y, aux
 
 
-def hidden_states(cfg: ModelConfig, params: dict, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+def hidden_states(cfg: ModelConfig, params: dict, x: torch.Tensor, positions: torch.Tensor, mesh=None) -> torch.Tensor:
     """The blocks in order (a loop over the layers where JAX scans), then
     the final norm."""
-    body = _remat(cfg, lambda pl, h: block(cfg, pl, h, positions)[0])
+    body = _remat(cfg, lambda pl, h: block(cfg, pl, h, positions, mesh=mesh)[0])
     for pl in layer_slices(params["blocks"], cfg.num_layers):
         x = body(pl, x)
     return apply_norm(cfg, params["ln_f"], x)
 
 
-def forward_train(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
-    """Logits ``[B, S, padded_vocab]`` over the whole sequence, after the
-    patch embeddings where the config has vision tokens."""
-    x = embed(params["embed"], batch["tokens"])
+def forward_train(cfg: ModelConfig, params: dict, batch: dict, mesh=None) -> torch.Tensor:
+    """Logits ``[B, S, padded_vocab]`` over the whole sequence (this rank's
+    vocabulary columns on a ``mesh``), after the patch embeddings where the
+    config has vision tokens."""
+    x = embed(params["embed"], batch["tokens"], cfg, mesh)
     if cfg.vision_tokens:
         x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x = hidden_states(cfg, params, x, positions)
+    x = hidden_states(cfg, params, x, positions, mesh)
     return unembed(cfg, params["embed"], x)
 
 
@@ -164,26 +176,30 @@ def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
     return kv_cache_specs(cfg, batch, cache_len, cfg.num_layers)
 
 
-def _dense_mlp(cfg: ModelConfig, pl: dict, h: torch.Tensor) -> torch.Tensor:
-    return apply_mlp(cfg, pl["mlp"], h)
+def _dense_mlp(cfg: ModelConfig, pl: dict, h: torch.Tensor, mesh=None) -> torch.Tensor:
+    return apply_mlp(cfg, pl["mlp"], h, mesh)
 
 
-def prefill_layer(cfg: ModelConfig, pl: dict, x: torch.Tensor, positions: torch.Tensor, mlp=_dense_mlp):
+def prefill_layer(cfg: ModelConfig, pl: dict, x: torch.Tensor, positions: torch.Tensor, mlp=None, mesh=None):
     """One block over the prompt: returns (x, k, v) with the post-RoPE keys
-    and values.  ``mlp(cfg, pl, h)`` is the block's feed-forward (the MoE
-    family passes its expert layer)."""
+    and values (this rank's KV heads on a ``mesh``).  ``mlp(cfg, pl, h)`` is
+    the block's feed-forward (the MoE family passes its expert layer; the
+    default is the dense MLP)."""
     pl = at_use(pl)
     h = apply_norm(cfg, pl["ln1"], x)
     q, k, v = qkv(cfg, pl["attn"], h, positions)
-    ctx = kops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
-    x = x + attn_out(pl["attn"], ctx)
-    return x + mlp(cfg, pl, apply_norm(cfg, pl["ln2"], x)), k, v
+    kq, vq = kv_for_heads(cfg, q, k, v, mesh)
+    ctx = kops.flash_attention(q, kq.contiguous(), vq.contiguous(), causal=True, window=cfg.sliding_window)
+    x = x + attn_out(pl["attn"], ctx, cfg, mesh)
+    h = apply_norm(cfg, pl["ln2"], x)
+    return x + (_dense_mlp(cfg, pl, h, mesh) if mlp is None else mlp(cfg, pl, h)), k, v
 
 
-def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int, mlp=_dense_mlp):
+def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int, mlp=None, mesh=None):
     """Run the prompt, after ``batch["patch_embeds"]`` where the config has
-    vision tokens; returns last-position logits and a filled KV cache."""
-    x = embed(params["embed"], batch["tokens"])
+    vision tokens; returns last-position logits (whole) and a filled KV
+    cache."""
+    x = embed(params["embed"], batch["tokens"], cfg, mesh)
     if cfg.vision_tokens:
         x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
     B, S = x.shape[0], x.shape[1]
@@ -192,11 +208,11 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int, mlp=_de
     positions = torch.arange(S, device=x.device)[None, :]
     ks, vs = [], []
     for l in range(cfg.num_layers):
-        x, k, v = prefill_layer(cfg, layer_slice(params["blocks"], l), x, positions, mlp)
+        x, k, v = prefill_layer(cfg, layer_slice(params["blocks"], l), x, positions, mlp, mesh)
         ks.append(prefill_rows(k, eff, ring))
         vs.append(prefill_rows(v, eff, ring))
     x = apply_norm(cfg, params["ln_f"], x[:, -1:])
-    logits = unembed(cfg, params["embed"], x)
+    logits = gather_vocab(cfg, unembed(cfg, params["embed"], x), mesh)
     cache = {
         "k": torch.stack(ks),
         "v": torch.stack(vs),
@@ -206,7 +222,7 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int, mlp=_de
 
 
 def decode_layer(cfg: ModelConfig, pl: dict, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                 lengths: torch.Tensor, kv_valid: torch.Tensor, mlp=_dense_mlp) -> torch.Tensor:
+                 lengths: torch.Tensor, kv_valid: torch.Tensor, mlp=None, mesh=None) -> torch.Tensor:
     """One block for one new token at position ``lengths``: writes its K/V
     into the layer's cache rows ``ck``/``cv`` in place and attends over the
     first ``kv_valid`` of them."""
@@ -214,22 +230,24 @@ def decode_layer(cfg: ModelConfig, pl: dict, x: torch.Tensor, ck: torch.Tensor, 
     h = apply_norm(cfg, pl["ln1"], x)
     q, k, v = qkv(cfg, pl["attn"], h, lengths[:, None])
     cache_update(ck, cv, k, v, lengths, cfg.sliding_window)
-    ctx = attend(q, ck, cv, causal=False, kv_len=kv_valid)
-    x = x + attn_out(pl["attn"], ctx)
-    return x + mlp(cfg, pl, apply_norm(cfg, pl["ln2"], x))
+    kq, vq = kv_for_heads(cfg, q, ck, cv, mesh)
+    ctx = attend(q, kq, vq, causal=False, kv_len=kv_valid)
+    x = x + attn_out(pl["attn"], ctx, cfg, mesh)
+    h = apply_norm(cfg, pl["ln2"], x)
+    return x + (_dense_mlp(cfg, pl, h, mesh) if mlp is None else mlp(cfg, pl, h))
 
 
-def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict, mlp=_dense_mlp):
-    """One new token against the cache; returns (logits, cache).  The step
-    writes the new K/V rows and the lengths into the cache it is handed and
-    returns that same cache (the JAX engine donates it)."""
+def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict, mlp=None, mesh=None):
+    """One new token against the cache; returns (logits, cache), the logits
+    whole.  The step writes the new K/V rows and the lengths into the cache
+    it is handed and returns that same cache (the JAX engine donates it)."""
     lengths = cache["len"]  # absolute number of tokens so far
-    x = embed(params["embed"], batch["token"][:, None])
+    x = embed(params["embed"], batch["token"][:, None], cfg, mesh)
     kv_valid = torch.clamp(lengths + 1, max=cache["k"].shape[2])
     for l in range(cfg.num_layers):
         pl = layer_slice(params["blocks"], l)
-        x = decode_layer(cfg, pl, x, cache["k"][l], cache["v"][l], lengths, kv_valid, mlp)
+        x = decode_layer(cfg, pl, x, cache["k"][l], cache["v"][l], lengths, kv_valid, mlp, mesh)
     x = apply_norm(cfg, params["ln_f"], x)
-    logits = unembed(cfg, params["embed"], x)
+    logits = gather_vocab(cfg, unembed(cfg, params["embed"], x), mesh)
     lengths += 1
     return logits, cache

@@ -22,6 +22,16 @@ reads the live tally, never a tensor, and no knob it turns (tracing mode,
 fidelity, cadence, ``cfg.max_new_tokens``) touches the captured graph, so an
 engine captures its decode step once.  ``live_tally`` / ``live_profile``
 report the surrounding session's live composite mid-run.
+
+With a ``partitioner`` (as the JAX engine takes one) every rank of its
+mesh runs the same schedule: each rank holds its block of the parameters
+(``artifacts.place_params``) and of every cache leaf (``artifacts.
+cache_specs``: its slots over the data axes, its KV heads over "model"),
+runs every prompt's prefill on its heads, splices the prompt's row into
+its blocks only where it holds that slot, decodes its slots and ends each
+step with every slot's token (the step's logits gathered whole).  Over
+``gloo`` the decode step runs eagerly, and the engine says so in
+``decode_note`` and one printed line (``artifacts.eager_reason``).
 """
 
 from __future__ import annotations
@@ -37,7 +47,9 @@ from repro_torch.core.interception import TracedStep, decode_step_span, prefill_
 from repro_torch.models import Model, ShapeSpec
 from repro_torch.models.param import DTYPES
 from repro_torch.models.param import zeros as spec_zeros
+from repro_torch.sharding.placement import Placed, block_shape, local_block
 
+from . import artifacts
 from .artifacts import decode_artifacts
 
 
@@ -77,6 +89,7 @@ class ServeEngine:
         model: Model,
         params: dict,
         cfg: ServeConfig,
+        partitioner=None,
         adaptive=None,
         cluster_adaptive=None,
         cluster_credentials: Optional[dict] = None,
@@ -86,6 +99,10 @@ class ServeEngine:
                 f"{model.cfg.name}: the engine feeds no patch_embeds, as the JAX engine feeds "
                 "none; drive a VLM through Model.prefill / decode_step"
             )
+        self.partitioner = partitioner
+        if partitioner is not None:
+            model = model.on_mesh(partitioner.mesh)
+            params = artifacts.place_params(model, params, partitioner)
         self.model = model
         self.cfg = cfg
         self.params = params
@@ -105,13 +122,29 @@ class ServeEngine:
         self.cluster_adaptive = build_cluster_controller(
             cluster_adaptive, **(cluster_credentials or {})
         )
-        self.device = params["embed"]["tok"].device
+        tok = params["embed"]["tok"]
+        self.device = (tok.local if isinstance(tok, Placed) else tok).device
         self._rid = itertools.count()
         B = cfg.batch_slots
         shape = ShapeSpec("serve", "decode", cfg.cache_len, B)
-        self.cache = spec_zeros(model.cache_specs(shape), model.cfg.dtype, self.device)
-        #: the step callable of ``decode_artifacts``: a DecodeGraph on the card
-        self.decode_fn = decode_artifacts(model, self.device)
+        #: the decode step's reason to run eagerly on the card, or None
+        self.decode_note = None
+        if partitioner is None:
+            self.cache = spec_zeros(model.cache_specs(shape), model.cfg.dtype, self.device)
+            #: the step callable of ``decode_artifacts``: a DecodeGraph on the card
+            self.decode_fn = decode_artifacts(model, self.device)
+        else:
+            self._cache_specs = artifacts.cache_specs(model, partitioner, shape)
+            self.cache = self._block_zeros(model.cache_specs(shape), self._cache_specs)
+            held = local_block(torch.arange(B), artifacts.batch_specs(model, partitioner, shape)["token"],
+                               partitioner.mesh)
+            #: (the first slot this rank's cache blocks hold, how many)
+            self._slots = (int(held[0]), held.numel())
+            self.decode_fn = decode_artifacts(model, self.device, partitioner)
+            if self.device.type == "cuda":
+                self.decode_note = artifacts.eager_reason(partitioner)
+            if self.decode_note:
+                print(f"[engine] {model.cfg.name}: {self.decode_note}", flush=True)
         self._decode = TracedStep(
             self.decode_fn,
             name=f"decode_step[{model.cfg.name}]",
@@ -158,10 +191,26 @@ class ServeEngine:
         first = int(torch.argmax(logits[0, 0, : self.model.cfg.vocab_size]))
         r.out_tokens.append(first)
         self._tok[slot] = first
-        self._splice_tree(self.cache, row, slot)
+        if self.partitioner is None:
+            self._splice_tree(self.cache, row, slot)
+        elif self._slots[0] <= slot < self._slots[0] + self._slots[1]:
+            self._splice_tree(self.cache, row, slot - self._slots[0])
 
     def cache_dtype(self) -> torch.dtype:
         return DTYPES[self.model.cfg.dtype]
+
+    def _block_zeros(self, spec_tree, pspecs):
+        """Zeros of this rank's block of every cache leaf."""
+        whole = spec_zeros(spec_tree, self.model.cfg.dtype, "meta")
+
+        def walk(t, s):
+            if isinstance(t, dict):
+                return {k: walk(t[k], s[k]) for k in t}
+            if isinstance(t, list):
+                return [walk(v, x) for v, x in zip(t, s)]
+            return torch.zeros(block_shape(t.shape, s, self.partitioner.mesh), dtype=t.dtype, device=self.device)
+
+        return walk(whole, pspecs)
 
     @classmethod
     def _splice_tree(cls, cache, row, slot: int) -> None:

@@ -11,6 +11,18 @@ summing reduce-scatter, ``all_to_all``'s the ``all_to_all`` back.  So when every
 each rank's gradient of its inputs is that of the sum of the ranks'
 losses.
 
+That rule also carries the tensor-parallel layers: every rank of the
+"model" axis computes the same loss on the same rows, and a ``psum`` after
+a row-parallel product (``wo``, ``w_down``, the vocabulary-parallel
+lookup and log-sum-exp) sends each rank the sum of the ranks' cotangents,
+so a block's gradient comes out "model" times the one-rank gradient of
+the rank's rows, and so does the sum over the "model" ranks of a
+replicated leaf's gradients.  The train step's
+``reduce_grads`` sums over the axes a leaf is replicated on and divides by
+every rank, which undoes exactly that: no Megatron pair of operators
+(identity forward, ``psum`` backward) is needed, and it would break the
+rule that the expert-parallel paths and ``reduce_grads`` rely on.
+
 A ``gloo`` group carries tensors through host memory: a CUDA tensor is
 copied to the host, reduced or moved there and copied back.  There sums
 of 16-bit floats run in fp32 and round once, and a reduce-scatter is an

@@ -15,10 +15,18 @@ rank's block from the whole leaf read from disk with :func:`local_block`
 under the spec of the mesh it restores onto.
 
 A :class:`Placed` leaf is a rank's block with its spec, handed to the
-model in place of the whole tensor.  ``whole_at_use`` leaves are gathered
-whole where a block uses them (:func:`at_use`; a layer-stacked leaf one
-layer at a time, :meth:`Placed.layer`); the others (the MoE family's expert
-weights) reach the layer that reshards them to its own spec.
+model in place of the whole tensor.  Where a block uses it (:func:`at_use`;
+a layer-stacked leaf one layer at a time, :meth:`Placed.layer`) it becomes
+the block of its ``kept`` spec: the entries of its spec on the dimensions
+the model computes locally, which for the families that split a layer over
+"model" are its heads, KV heads, FFN columns and vocabulary
+(:data:`TENSOR_PARALLEL`), gathered over every other axis.  So such a layer
+computes its own heads, columns and rows (:func:`block_range` says which)
+and sums after its output projection, as GSPMD partitions the JAX step; a
+dimension that does not divide the axis was never split (the partitioner's
+replication fallback) and is whole on every rank.  A leaf split along
+:data:`BLOCK_AXES` (the MoE family's expert weights) reaches its layer as
+the ``Placed`` block, and the layer reshards it to its own spec.
 """
 
 from __future__ import annotations
@@ -32,30 +40,65 @@ import torch.distributed as dist
 from . import collectives as C
 from .partition import PartitionSpec
 
+#: the logical axes a tensor-parallel layer computes on this rank's block
+TENSOR_PARALLEL = ("heads", "kv_heads", "mlp", "vocab")
+#: the logical axes whose leaves reach their layer as :class:`Placed` blocks
+BLOCK_AXES = ("experts",)
+
 
 @dataclasses.dataclass
 class Placed:
-    """A rank's block of a leaf: ``local``, its ``spec`` on ``mesh``."""
+    """A rank's block of a leaf: ``local``, its ``spec`` on ``mesh``; at use
+    the block of ``kept`` (whole by default), or, without ``whole_at_use``,
+    the ``Placed`` block itself."""
 
     local: torch.Tensor
     spec: PartitionSpec
     mesh: object
     whole_at_use: bool = True
     stacked: bool = False  # the leading dimension is "layers"
+    kept: PartitionSpec = PartitionSpec()
 
     def layer(self, l: int) -> "Placed":
         """Layer ``l`` of a layer-stacked leaf (the "layers" axis is never
         sharded), still a block."""
-        spec = PartitionSpec(*self.spec[1:])
-        return Placed(self.local[l], spec, self.mesh, self.whole_at_use, False)
+        return Placed(self.local[l], _tail(self.spec), self.mesh, self.whole_at_use, False, _tail(self.kept))
 
     def layers(self) -> list:
         """Every layer's block, through one ``unbind`` (``layers.layer_slices``)."""
-        spec = PartitionSpec(*self.spec[1:])
-        return [Placed(t, spec, self.mesh, self.whole_at_use, False) for t in self.local.unbind(0)]
+        spec, kept = _tail(self.spec), _tail(self.kept)
+        return [Placed(t, spec, self.mesh, self.whole_at_use, False, kept) for t in self.local.unbind(0)]
 
-    def whole(self) -> torch.Tensor:
-        return gather_whole(self.local, self.spec, self.mesh)
+    def at_use(self) -> torch.Tensor:
+        """The block of ``kept``: gathered over every axis ``kept`` drops."""
+        return reshard(self.local, self.spec, self.kept, self.mesh)
+
+
+def _tail(spec: PartitionSpec) -> PartitionSpec:
+    return PartitionSpec(*spec[1:])
+
+
+def kept_spec(spec: PartitionSpec, axes, local_axes) -> PartitionSpec:
+    """``spec`` with only the entries of the dimensions whose logical axis is
+    in ``local_axes`` (trailing ``None`` trimmed)."""
+    entries = [spec[d] if d < len(spec) and axes[d] in local_axes else None for d in range(len(axes))]
+    while entries and entries[-1] is None:
+        entries.pop()
+    return PartitionSpec(*entries)
+
+
+def block_range(whole: int, local: int, mesh, axis: str = "model") -> tuple:
+    """(first, count) of the global indices a rank's block of ``local`` of a
+    dimension of ``whole`` holds along ``axis``: the whole dimension when it
+    was not split (``local == whole``), else block ``axis_index`` of
+    ``whole // local``; a block without a ``mesh`` to place it raises."""
+    if local == whole:
+        return 0, whole
+    if mesh is None:
+        raise ValueError(f"a block of {local} of {whole} along {axis!r} with no mesh to place it")
+    if whole % local or whole // local != mesh.shape.get(axis, 1):
+        raise ValueError(f"a block of {local} of {whole} is not one of {mesh.shape.get(axis, 1)} along {axis!r}")
+    return C.axis_index(mesh, axis) * local, local
 
 
 def _index_on(axes, mesh, coords=None) -> tuple:
@@ -160,13 +203,13 @@ def take(leaf, want: PartitionSpec, mesh) -> torch.Tensor:
 
 
 def at_use(tree, top: bool = False):
-    """``tree`` with its ``whole_at_use`` :class:`Placed` leaves gathered
-    whole; with ``top``, only the leaves that are not layer-stacked (the
-    stacked ones are gathered a layer at a time through
+    """``tree`` with its ``whole_at_use`` :class:`Placed` leaves turned into
+    the blocks of their ``kept`` specs; with ``top``, only the leaves that are
+    not layer-stacked (the stacked ones a layer at a time through
     ``layers.layer_slice``).  Other leaves pass as they are."""
     if isinstance(tree, Placed):
         if tree.whole_at_use and not (top and tree.stacked):
-            return tree.whole()
+            return tree.at_use()
         return tree
     if isinstance(tree, dict):
         return {k: at_use(v, top) for k, v in tree.items()}
@@ -177,16 +220,20 @@ def at_use(tree, top: bool = False):
 
 def place(tree, specs, mesh, keep_local=(), axes=None):
     """``tree`` of this rank's blocks as :class:`Placed` leaves under the
-    matching tree of ``specs``; leaves whose key is in ``keep_local`` are
-    not gathered at use, and ``axes`` (the logical axes tree) marks the
-    layer-stacked leaves."""
+    matching tree of ``specs`` and of ``axes`` (the logical axes): a leaf
+    keeps at use its split along the logical axes in ``keep_local``
+    (``Model.keep_local``), and one split along a :data:`BLOCK_AXES` axis in
+    ``keep_local`` reaches its layer as the block.  Without ``axes`` every
+    leaf is gathered whole at use."""
 
-    def walk(t, s, a, key):
+    def walk(t, s, a):
         if isinstance(t, dict):
-            return {k: walk(t[k], s[k], a[k] if a is not None else None, k) for k in t}
+            return {k: walk(t[k], s[k], a[k] if a is not None else None) for k in t}
         if isinstance(t, list):
-            return [walk(v, s[i], a[i] if a is not None else None, key) for i, v in enumerate(t)]
-        stacked = bool(a) and a[0] == "layers"
-        return Placed(t, s, mesh, whole_at_use=key not in keep_local, stacked=stacked)
+            return [walk(v, s[i], a[i] if a is not None else None) for i, v in enumerate(t)]
+        a = a or ()
+        block = any(x in keep_local for x in a if x in BLOCK_AXES)
+        kept = kept_spec(s, a, keep_local) if a else PartitionSpec()
+        return Placed(t, s, mesh, whole_at_use=not block, stacked=bool(a) and a[0] == "layers", kept=kept)
 
-    return walk(tree, specs, axes, "")
+    return walk(tree, specs, axes)

@@ -13,15 +13,24 @@ one-rank mesh, where every block is the whole leaf and no collective
 runs, so the step is the one-device step): each rank holds its block of
 every parameter and AdamW moment (``state_specs``; ``count`` whole), and
 its rows of the batch (``batch_specs_sharded``).  JAX leaves the compute
-layout to XLA; the port computes the same function so: each weight is
-gathered whole where a block uses it (the MoE experts stay on their
-"model" shard and tokens travel to them), each rank computes its rows,
-the gradients come back to the blocks through the gathers' transposes
-(summing reduce-scatters), are summed over the axes a leaf is replicated
-on and divided by the ranks (the mean over the data axes), and AdamW
-updates the blocks in place.  ``grad_compression`` quantises each row
-with the absmax of the whole row (a max all-reduce where the last
-dimension is sharded), as JAX quantises the logical array.
+layout to XLA, whose GSPMD splits each layer over "model"; the port
+computes the same function the same way.  Each rank computes its rows; a
+leaf split over "model" along its heads, KV heads, FFN columns or
+vocabulary stays the rank's block where a block uses it (gathered over the
+data axes only where ``fsdp`` splits its "embed" dimension there), so the
+rank computes its heads and columns, sums after the output projections
+and takes a vocabulary-parallel cross-entropy (``models.layers``); the MoE
+experts stay on their "model" shard and tokens travel to them; every other
+leaf is gathered whole.  The gradients of the blocks come from that local
+compute (and through the gathers' transposes, summing reduce-scatters,
+for what was gathered); :func:`reduce_grads` sums each over the axes its
+leaf is replicated on and divides by the ranks (the mean over the data
+axes: every "model" rank's loss counts, ``sharding.collectives``), and
+AdamW updates the blocks in place.  The checkpoints hold the same blocks
+as before: only the compute layout changed.  ``grad_compression``
+quantises each row with the absmax of the whole row (a max all-reduce
+where the last dimension is sharded), as JAX quantises the logical
+array.
 
 The parameters in the state need no gradient: each step differentiates
 ``detach()``-ed views of them (no copy), so the state never holds a graph.
@@ -123,10 +132,11 @@ def _maybe_compress(grads, on: bool, mesh, specs):
 
 
 def reduce_grads(grads: dict, specs: dict, mesh) -> dict:
-    """Each rank's gradients of its blocks (the gathers' transposes have
-    summed them over the axes a leaf is sharded on) summed over the axes the
-    leaf is replicated on and divided by the ranks: the gradient of the
-    mean of the ranks' losses, which is the mean over the data axes."""
+    """Each rank's gradients of its blocks (each the gradient of the sum of
+    the ranks' losses with respect to the block: ``sharding.collectives``)
+    summed over the axes the leaf is replicated on and divided by the
+    ranks: the gradient of the mean of the ranks' losses, which is the mean
+    over the data axes."""
     n = mesh.size
     if n == 1:
         return grads
@@ -179,6 +189,7 @@ def build_train_step(model: Model, shape: ShapeSpec, tcfg: TrainConfig, device,
         raise ValueError(f"global_batch {shape.global_batch} % microbatches {k} != 0")
     partitioner = one_rank(partitioner)
     mesh = partitioner.mesh
+    model = model.on_mesh(mesh)
     meta, specs = state_specs(model, partitioner, tcfg)
     state_bytes = nbytes_of(_spec_map(  # the rank's blocks
         lambda t, s: torch.empty(block_shape(t.shape, s, mesh), dtype=t.dtype, device="meta"), meta, specs))

@@ -354,9 +354,19 @@ def test_fanout_encodes_once_per_update():
                 s.close()
 
 
+#: how long the slow subscriber may take to be evicted, and each later wait:
+#: the eviction comes once the master's socket buffers towards it are full,
+#: after 35-125 wide frames on an idle host, and a loaded host's hub thread
+#: coalesces submits, so it takes more of them; the waits end as soon as
+#: their condition holds
+EVICTION_DEADLINE_S = 60.0
+WAIT_S = 30.0
+
+
 def test_slow_subscriber_evicted_without_stalling_hub():
     """A subscriber that never drains gets evicted on queue overflow; the
-    healthy subscriber next to it keeps receiving throughout."""
+    healthy subscriber next to it keeps receiving throughout.  Every wait
+    runs to a deadline, not a count of submits."""
     opts = ServeOptions(hub_queue_frames=2)
     with MasterServer(port=0, options=opts) as m:
         wide = mk_wide_tally(1500)  # ~100 KB frames: clogs a 4 KB window fast
@@ -366,27 +376,28 @@ def test_slow_subscriber_evicted_without_stalling_hub():
         try:
             assert recv_frame(healthy)["type"] == "composite"
             healthy_frames = 0
-            for i in range(200):
+            deadline = time.monotonic() + EVICTION_DEADLINE_S
+            i = 0
+            while m.sub_evictions < 1 and time.monotonic() < deadline:
                 wide.apis[("ust_repro", "api_00000")].add(1000 + i)
+                i += 1
                 m.submit("r0", wide)
                 r, _, _ = select.select([healthy], [], [], 0.05)
                 if r:
                     recv_frame(healthy)
                     healthy_frames += 1
-                if m.sub_evictions >= 1:
-                    break
             assert m.sub_evictions >= 1, "slow subscriber was never evicted"
             # hub still alive for the healthy subscriber after the eviction
             m.submit("r0", mk_wide_tally(1500, calls=3))
             assert wait_until(
-                lambda: select.select([healthy], [], [], 0.1)[0] != []
+                lambda: select.select([healthy], [], [], 0.1)[0] != [], timeout_s=WAIT_S
             )
             assert recv_frame(healthy)["type"] == "composite"
             assert healthy_frames >= 1
         finally:
             slow.close()
             healthy.close()
-        assert wait_until(lambda: m.stats()["subscribers"] == 0)
+        assert wait_until(lambda: m.stats()["subscribers"] == 0, timeout_s=WAIT_S)
 
 
 # ---------------------------------------------------------------------------
